@@ -1,0 +1,296 @@
+"""DDIM inpainting sampler (PyTorch port).
+
+Counterpart of the DDIM branch of `fidm_tpu/sampling/sampler.py`: the same
+float64 host coefficient tables, copied once to the device as float32, then a
+Python loop over the steps. The loop reads per-step coefficients as device
+scalars and decides on the host which draws a step needs (from the host
+tables), so it never waits on the device.
+
+Noise contract. Three draws, as in the JAX sampler: the initial state, one
+draw per step index, and the injection noise keyed by the TARGET timestep of
+the injection (so the same seed and timestep give the same noise, the
+reference's ground-truth noise cache). `GeneratorNoise` makes them from a
+`torch.Generator` seeded from the caller's integer seed; tests pass any
+object with the same three methods.
+
+Only method="ddim" without feature caching, refinement (strength < 1),
+trajectories or guidance is ported; everything else raises
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..diffusion import gaussian as gd
+from ..diffusion.schedules import DiffusionSchedule, timestep_sequence
+
+__all__ = ["SamplerConfig", "inpaint_sample", "host_alphas_cumprod", "GeneratorNoise"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """The JAX package's sampler configuration, field for field; see
+    `fidm_tpu.sampling.SamplerConfig` for what each field means."""
+
+    method: str = "ddim"
+    num_steps: Optional[int] = 100
+    timesteps: Optional[tuple] = None
+    time_spacing: str = "uniform"
+    eta: float = 0.0
+    clip_denoised: bool = True
+    injection: bool = True
+    injection_point: str = "post"        # "post" (eval-script) | "pre" (library)
+    injection_schedule: str = "all"      # "all" | "high" | "low"
+    final_blend: bool = True
+    mean_type: gd.ModelMeanType = gd.ModelMeanType.EPSILON
+    var_type: gd.ModelVarType = gd.ModelVarType.LEARNED_RANGE
+    encoder_cache_period: int = 1
+    encoder_cache_tail: int = 0
+    cache_branch: int = 0
+    cache_keysteps: Optional[Tuple[int, ...]] = None
+    trajectory_every: int = 0
+    strength: float = 1.0
+    unipc_order: int = 2
+    unipc_corrector: bool = True
+    jump_length: int = 10
+    jump_n_sample: int = 10
+    output_dtype: str = "float32"
+
+
+def host_alphas_cumprod(sched: DiffusionSchedule) -> np.ndarray:
+    """Float64 cumulative alphas for the coefficient tables, from the
+    schedule's float64 host betas (the device tables are rounded to f32)."""
+    return np.cumprod(1.0 - sched.betas_host, axis=0)
+
+
+def _injection_gate(ts: np.ndarray, schedule: str, T: int) -> np.ndarray:
+    if schedule == "all":
+        return np.ones_like(ts, dtype=np.float64)
+    half = T // 2
+    if schedule == "high":
+        return (ts >= half).astype(np.float64)
+    if schedule == "low":
+        return (ts < half).astype(np.float64)
+    raise ValueError(f"unknown injection_schedule: {schedule}")
+
+
+def _respaced_seq(sched: DiffusionSchedule, cfg: SamplerConfig,
+                  acp: np.ndarray) -> np.ndarray:
+    """The descending timestep grid (explicit > spaced > full); strength < 1
+    keeps only the last round(strength * K) entries."""
+    T = sched.num_timesteps
+    if cfg.timesteps is not None:
+        seq = np.asarray(cfg.timesteps, dtype=np.int64)
+        if not (np.diff(seq) < 0).all():
+            raise ValueError("timesteps must be descending")
+    else:
+        K = cfg.num_steps or T
+        seq = (np.arange(T)[::-1] if K >= T else
+               timestep_sequence(T, K, cfg.time_spacing, alphas_cumprod=acp))
+    if not 0.0 < cfg.strength <= 1.0:
+        raise ValueError(f"strength must be in (0, 1], got {cfg.strength}")
+    if cfg.strength < 1.0:
+        k = max(1, int(round(cfg.strength * len(seq))))
+        seq = seq[len(seq) - k:]
+    return seq
+
+
+def _ddim_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """Per-step float64 coefficient tables for the respaced DDIM loop."""
+    T = sched.num_timesteps
+    acp = host_alphas_cumprod(sched)
+    seq = _respaced_seq(sched, cfg, acp)
+
+    a_t = acp[seq]
+    a_prev = np.append(acp[seq[1:]], 1.0)  # last step's "previous" is x_0
+    sigma = cfg.eta * np.sqrt((1 - a_prev) / (1 - a_t)) * np.sqrt(1 - a_t / a_prev)
+    # posterior mean coefficients of the respaced chain, used to invert a
+    # PREVIOUS_X model's output into pred_x0 (`_x0_eps_from_raw`)
+    betas_r = 1.0 - a_t / a_prev
+    post_c1 = betas_r * np.sqrt(a_prev) / (1.0 - a_t)
+    post_c2 = (1.0 - a_prev) * np.sqrt(1.0 - betas_r) / (1.0 - a_t)
+    return {
+        "t": seq.astype(np.int32),
+        "sqrt_one_minus_a_t": np.sqrt(1 - a_t),
+        "sqrt_a_t": np.sqrt(a_t),
+        "sqrt_a_prev": np.sqrt(a_prev),
+        "dir_coef": np.sqrt(np.maximum(1 - a_prev - sigma**2, 0.0)),
+        "sigma": sigma,
+        # stochastic noise only when t > 0 and eta > 0
+        "noise_gate": (seq > 0).astype(np.float64) * (1.0 if cfg.eta > 0 else 0.0),
+        # inject at the *previous* level after the update, skip at the final
+        # step. The high/low schedule gates on the CURRENT level even though
+        # the post-injection lands at seq[i+1] (reference semantics)
+        "inject_gate": (seq > 0).astype(np.float64)
+        * _injection_gate(seq, cfg.injection_schedule, T),
+        "inject_sqrt_a": np.sqrt(a_prev),
+        "inject_sqrt_1ma": np.sqrt(1 - a_prev),
+        "inject_t": np.append(seq[1:], 0).astype(np.int32),
+        # pre-injection (library mode) uses the *current* level t
+        "pre_inject_gate": _injection_gate(seq, cfg.injection_schedule, T),
+        "pre_inject_sqrt_a": np.sqrt(a_t),
+        "pre_inject_sqrt_1ma": np.sqrt(1 - a_t),
+        "xprev_inv_c1": 1.0 / post_c1,
+        "xprev_c2c1": post_c2 / post_c1,
+        "step": np.arange(len(seq), dtype=np.int32),
+    }
+
+
+def _to_device_xs(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {
+        k: torch.as_tensor(v.astype(np.int32 if v.dtype.kind == "i" else np.float32),
+                           device=device)
+        for k, v in tables.items()
+    }
+
+
+def _x0_eps_from_raw(raw, x, s, cfg: SamplerConfig):
+    """(pred_x0, eps) from the model's raw 3-channel output per mean_type.
+
+    EPSILON keeps the reference behavior: the DDIM direction term uses the
+    raw eps, not an eps re-derived from the clipped x0.
+    """
+    if cfg.mean_type == gd.ModelMeanType.EPSILON:
+        pred_x0 = (x - s["sqrt_one_minus_a_t"] * raw) / s["sqrt_a_t"]
+        return pred_x0, raw
+    if cfg.mean_type == gd.ModelMeanType.VELOCITY:
+        pred_x0 = s["sqrt_a_t"] * x - s["sqrt_one_minus_a_t"] * raw
+    elif cfg.mean_type == gd.ModelMeanType.START_X:
+        pred_x0 = raw
+    elif cfg.mean_type == gd.ModelMeanType.PREVIOUS_X:
+        pred_x0 = s["xprev_inv_c1"] * raw - s["xprev_c2c1"] * x
+    else:
+        raise NotImplementedError(cfg.mean_type)
+    eps = (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
+    return pred_x0, eps
+
+
+def _maybe_pre_inject(x, s, gt, keep, noise):
+    noised = s["pre_inject_sqrt_a"] * gt + s["pre_inject_sqrt_1ma"] * noise
+    injected = keep * noised + (1.0 - keep) * x
+    return x + s["pre_inject_gate"] * (injected - x)
+
+
+def _maybe_post_inject(x, s, gt, keep, noise):
+    noised = s["inject_sqrt_a"] * gt + s["inject_sqrt_1ma"] * noise
+    injected = (1.0 - keep) * x + keep * noised
+    return x + s["inject_gate"] * (injected - x)
+
+
+def _finalize_output(x, cfg: SamplerConfig):
+    """Apply cfg.output_dtype. "uint8" is the reference's toU8:
+    ((x+1)*127.5).clamp(0,255) then a truncating cast."""
+    if cfg.output_dtype == "float32":
+        return x
+    if cfg.output_dtype == "uint8":
+        return torch.clamp((x + 1.0) * 127.5, 0.0, 255.0).to(torch.uint8)
+    raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {cfg.output_dtype!r}")
+
+
+class GeneratorNoise:
+    """The sampler's three noise draws from one integer seed.
+
+    Each draw seeds its own `torch.Generator` on `device` from
+    (seed, stream, index): stream 0 is the initial state, 1 the per-step
+    noise by step index, 2 the injection noise by timestep. The same seed
+    and index give the same tensor in any order of calls.
+    """
+
+    def __init__(self, seed: int, device):
+        if not isinstance(seed, (int, np.integer)) or seed < 0:
+            raise ValueError(f"seed must be a non-negative integer, got {seed!r}")
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def _draw(self, stream: int, index: int, shape) -> torch.Tensor:
+        state = np.random.SeedSequence([self.seed, stream, int(index)])
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+        return torch.randn(tuple(shape), generator=g, device=self.device,
+                           dtype=torch.float32)
+
+    def init(self, shape) -> torch.Tensor:
+        return self._draw(0, 0, shape)
+
+    def step(self, index: int, shape) -> torch.Tensor:
+        return self._draw(1, index, shape)
+
+    def inject(self, timestep: int, shape) -> torch.Tensor:
+        return self._draw(2, timestep, shape)
+
+
+def _check_ported(cfg: SamplerConfig, cond_fn):
+    if cfg.method != "ddim":
+        raise NotImplementedError(f"sampler method {cfg.method!r} is not ported yet")
+    if cfg.encoder_cache_period > 1 or cfg.cache_keysteps is not None or cfg.cache_branch:
+        raise NotImplementedError("feature caching is not ported yet")
+    if cfg.strength != 1.0:
+        raise NotImplementedError("refinement (strength < 1) is not ported yet")
+    if cfg.trajectory_every:
+        raise NotImplementedError("trajectory_every is not ported yet")
+    if cond_fn is not None:
+        raise NotImplementedError("classifier guidance (cond_fn) is not ported yet")
+    if cfg.injection_point not in ("post", "pre"):
+        raise ValueError(f"unknown injection_point: {cfg.injection_point}")
+
+
+def inpaint_sample(
+    apply_fn: Callable,
+    sched: DiffusionSchedule,
+    cfg: SamplerConfig,
+    *,
+    gt: torch.Tensor,
+    mask: torch.Tensor,
+    noise,
+    cond_fn: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Run the DDIM inpainting reverse process.
+
+    Args:
+      apply_fn: (x, t[B], masked_image, mask) -> model output (NHWC, f32).
+      gt: ground-truth images [B,H,W,3] in [-1,1], float32, on the device.
+      mask: [B,H,W,1], 1 = inpaint (hole), 0 = keep.
+      noise: the noise source (`GeneratorNoise` or any object with its
+        `init(shape)`, `step(index, shape)` and `inject(timestep, shape)`).
+
+    Returns:
+      Inpainted images [B,H,W,3]; with cfg.final_blend the known pixels are
+      exactly `gt`.
+    """
+    _check_ported(cfg, cond_fn)
+    B = gt.shape[0]
+    keep = (1.0 - mask).to(gt.dtype)
+    masked_image = gt * keep
+    tables = _ddim_tables(sched, cfg)
+    xs = _to_device_xs(tables, gt.device)
+    pre = cfg.injection and cfg.injection_point == "pre"
+    post = cfg.injection and cfg.injection_point == "post"
+
+    x = noise.init(gt.shape).to(torch.float32)
+    for i in range(len(tables["t"])):
+        s = {k: v[i] for k, v in xs.items()}
+        # a step whose host gate is 0 adds exactly nothing; skip its draw
+        if pre and tables["pre_inject_gate"][i] > 0:
+            x = _maybe_pre_inject(x, s, gt, keep,
+                                  noise.inject(int(tables["t"][i]), gt.shape))
+        out = apply_fn(x, s["t"].expand(B), masked_image, mask)
+        raw = out[..., :3]  # learned variance is unused by DDIM
+        pred_x0, eps = _x0_eps_from_raw(raw, x, s, cfg)
+        if cfg.clip_denoised:
+            pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
+            if cfg.mean_type != gd.ModelMeanType.EPSILON:
+                eps = (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
+        x = s["sqrt_a_prev"] * pred_x0 + s["dir_coef"] * eps
+        if tables["noise_gate"][i] > 0:
+            x = x + s["noise_gate"] * s["sigma"] * noise.step(i, x.shape)
+        if post and tables["inject_gate"][i] > 0:
+            x = _maybe_post_inject(x, s, gt, keep,
+                                   noise.inject(int(tables["inject_t"][i]), gt.shape))
+
+    if cfg.final_blend:
+        x = x * mask + gt * keep
+    return _finalize_output(x, cfg)

@@ -1,0 +1,105 @@
+"""The port's CUDA kernels on the card: each against its plain version, its
+wrapper's checks, and a small pipeline through it.
+
+Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one.
+The file imports no JAX, so that it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fidm_tpu_torch import InpaintingPipeline, PipelineConfig
+from fidm_tpu_torch.models import UNetConfig
+from fidm_tpu_torch.models.layers import AttentionBlock
+from fidm_tpu_torch.ops import LAUNCHES, kernel_override, qkv_attention
+from fidm_tpu_torch.ops import attention as port_attention
+from fidm_tpu_torch.sampling import SamplerConfig
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(shape, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for _ in range(3)]
+
+
+# f32: the sums run in another order. bf16: the plain version rounds
+# q*scale, k*scale, the logits and the softmax to bf16, the kernel keeps f32
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,d", [(1, 64), (64, 64), (256, 64), (100, 32), (1024, 128),
+                                 (4096, 64)])
+def test_kernel_matches_plain(cuda, s, d, dtype, atol):
+    q, k, v = _qkv((2, 8, s, d), 5, dtype, cuda)
+    before = LAUNCHES["attention"]
+    out = qkv_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    with kernel_override(False, "attention"):
+        ref = qkv_attention(q, k, v)
+    assert LAUNCHES["attention"] == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+def test_backward_recomputes_plain(cuda):
+    q, k, v = (a.requires_grad_() for a in _qkv((1, 2, 64, 64), 6, torch.float32, cuda))
+    qkv_attention(q, k, v).sum().backward()
+    grads = [a.grad.clone() for a in (q, k, v)]
+    for a in (q, k, v):
+        a.grad = None
+    port_attention._attention_reference(q, k, v).sum().backward()
+    for g, a in zip(grads, (q, k, v)):
+        torch.testing.assert_close(g, a.grad, atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv((1, 2, 16, 64), 7, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        port_attention._attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        port_attention._attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        port_attention._attention_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                       v[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        port_attention._attention_cuda(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    with pytest.raises(ValueError):
+        port_attention._attention_cuda(q, k[:, :, :8], v)
+
+
+def test_small_pipeline_runs_through_the_kernel(cuda):
+    cfg = PipelineConfig(
+        unet=UNetConfig(image_size=32, model_channels=64, channel_mult=(1, 2),
+                        attention_resolutions=(2,), num_head_channels=64),
+        sampler=SamplerConfig(method="ddim", num_steps=10, eta=0.9, injection=True))
+    pipe = InpaintingPipeline.create(cfg, seed=0, device="cuda")
+    n_attn = sum(isinstance(m, AttentionBlock) for m in pipe.model.modules())
+    rng = np.random.default_rng(0)
+    gt = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    mask = np.zeros((2, 32, 32, 1), np.float32)
+    mask[:, 8:24, 8:24] = 1.0
+    before = LAUNCHES["attention"]
+    out = pipe.inpaint(gt, mask, 0)
+    assert LAUNCHES["attention"] - before == n_attn * 11
+    again = pipe.inpaint(gt, mask, 0)
+    keep = torch.from_numpy(mask[..., 0] < 0.5).cuda()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[keep], torch.from_numpy(gt).cuda()[keep])
+    assert torch.equal(out, again)
+    uint8 = pipe.inpaint(gt, mask, 0, sampler=dataclasses.replace(cfg.sampler,
+                                                                  output_dtype="uint8"))
+    assert uint8.dtype == torch.uint8 and uint8.is_cuda
