@@ -7,18 +7,26 @@ Run from the root of the repository, with no arguments:
 
 Phases, one line each (or a few), any failure exits non-zero:
 
-1. the card's name and power limit; the CUDA kernels are built with nvcc
-   from `fidm_tpu_torch/ops/csrc/` (sm_90a);
-2. each kernel against its plain PyTorch version on the card, over
-   sequence lengths, head dims and dtypes, with its time beside the plain
-   version's, a PyTorch library call's and its bound;
+1. the card's name and power limit, and whether PIL imports on this machine;
+   the CUDA kernels are built with nvcc from `fidm_tpu_torch/ops/csrc/`
+   (sm_90a), one process per source, all started together;
+2. each kernel against its plain PyTorch version on the card, with its time
+   beside the plain version's, a PyTorch call's and its bound: attention
+   over sequence lengths, head dims and dtypes; the int8 quantizer at the
+   FFHQ-256 UNet's weight shapes and a ragged one, bit for bit;
 3. the main path at full width: `InpaintingPipeline.create(PipelineConfig())`
    (the FFHQ-256 UNet, random weights from seed 0 with every zero-initialised
    conv re-drawn so that the output is not identically 0), DDIM-100 on a
    batch of 4 with a box mask, through the attention kernel;
 4. the same path with the plain attention forced, held against phase 3, and
    one full-width UNet forward kernel against plain;
-5. a JSON line of the kernels, then the contract line
+5. the quantization path at full width: phase 3's model written as an ADM
+   `.pt`, `fidm_tpu_torch.cli.quantize` on it (absmax, through the quantize
+   kernel; twice, bit-identical; then `--calibrate` on a packed shard
+   directory written with numpy), the absmax `.npz` loaded into a pipeline,
+   DDIM-100 on it with phase 3's inputs and seed, and one UNet forward
+   quantized against unquantized;
+6. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
 Both TF32 switches are off, so float32 products and convolutions are full
@@ -30,7 +38,9 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 / f32
@@ -47,10 +57,26 @@ BATCH = 4
 UNET_F32_TOL = 1e-4
 UNET_BF16_TOL = 5e-2
 IMAGE_MEAN_TOL = 5e-2
+# The quantizer at the shapes the FFHQ-256 UNet gives it ([rows, out channels]:
+# the 3x3 convs at 512 out and 1024/1536/768 in, qkv, a 3x3 conv at 128 out)
+# and a ragged one that the kernel takes though the dispatch never sends it.
+QUANT_SHAPES = ((9216, 512), (4608, 512), (512, 1536), (1152, 128), (100, 200))
+QUANT_SEED = 7
+# Phase 5. The FFHQ-256 model at the JAX dispatch rule: 116 kernels quantized,
+# 114 of them [N, C] with N % 8 == 0 and C % 128 == 0 (the kernel's launches).
+QUANT_TENSORS = 116
+QUANT_LAUNCHES = 114
+# One UNet forward in bf16, the int8 absmax weights (dequantized) against the
+# float32 ones, max abs / max |float32 weights|. Each weight moves by less
+# than one step, 1/127 of its channel's absmax; in this random-weight model
+# that moved the output by 4.9e-2 of its max on an H100 SXM, where bf16
+# activations alone move it by 3-4e-2 (phase 4). The bound is twice that.
+QUANT_UNET_TOL = 0.1
 
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -79,21 +105,30 @@ def cuda_ms(torch, fn, budget_ms=150.0, min_iters=3, max_iters=500):
     return start.elapsed_time(end) / n
 
 
-def device_ms(torch, fn, n=20):
+def device_ms(torch, fn, n=20, tries=3):
     """Device time of one call of `fn`: its kernels' time summed by
-    torch.profiler over `n` calls after a warm-up, host gaps left out."""
+    torch.profiler over `n` calls after a warm-up, host gaps left out.
+
+    Now and then a profiler session comes back with no device events at all
+    (on an H100, about once in a few hundred sessions of this script). Such
+    a session is run again; after `tries` empty ones the time is taken by
+    CUDA events instead (host cost included), and the line says so."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(total > 0, "the profiler recorded no device time")
-    return total / 1e3 / n
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / n
+    print(f"      the profiler recorded no device time in {tries} sessions: "
+          f"the next time is by CUDA events", flush=True)
+    return cuda_ms(torch, fn)
 
 
 def attention_bound(b, h, s, d, dtype):
@@ -140,6 +175,99 @@ def phase_kernels(torch, F, attention, kernel_override):
                 del q, k, v, out, ref
     torch.cuda.empty_cache()
     return main_row
+
+
+def quantize_bound(n, c):
+    """(bound_ms, bound_by) for one [n, c] quantize call: x read once, the
+    int8 values and float32 scales written once. Its operations (a Philox
+    call per four elements, a division per element) are far below the
+    card's rate."""
+    return (5 * n * c + 4 * c) / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_quantize_kernel(torch, quantize_ops, quant_int8, kernel_override):
+    """Phase 2: the quantize kernel against its plain version, bit for bit.
+    Returns the row measured at the largest shape."""
+    main_row = None
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    for n, c in QUANT_SHAPES:
+        x = 0.05 * torch.randn(n, c, device="cuda", generator=g)
+        x[0, 0] = 0.0
+        values, scales = quantize_ops._quantize_cuda(x, QUANT_SEED)
+        torch.cuda.synchronize()
+        ref_values, ref_scales = quantize_ops._quantize_stochastic_reference(x, QUANT_SEED)
+        err = max((values.int() - ref_values.int()).abs().max().item(),
+                  (scales - ref_scales).abs().max().item())
+        differ = int((values != ref_values).sum().item())
+        ms = device_ms(torch, lambda: quantize_ops._quantize_cuda(x, QUANT_SEED))
+        call_ms = cuda_ms(torch, lambda: quantize_ops._quantize_cuda(x, QUANT_SEED))
+        plain_ms = device_ms(
+            torch, lambda: quantize_ops._quantize_stochastic_reference(x, QUANT_SEED))
+        with kernel_override(False, "quantize"):
+            nearest_ms = device_ms(torch, lambda: quant_int8.quantize_tensor(x))
+        bound_ms, bound_by = quantize_bound(n, c)
+        print(f"  quantize f32 [{n}, {c}]: max_abs_err={err:.3g} ({differ} values "
+              f"differ; tol 0) kernel_ms={ms:.5f} (wrapper call {call_ms:.5f}) "
+              f"plain_ms={plain_ms:.5f} nearest_torch_ms={nearest_ms:.5f} "
+              f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+        check(err == 0 and torch.equal(values, ref_values) and torch.equal(scales, ref_scales),
+              f"quantize kernel disagrees with its plain version at [{n}, {c}]")
+        if (n, c) == QUANT_SHAPES[0]:
+            main_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None)
+        del x, values, scales, ref_values, ref_scales
+    torch.cuda.empty_cache()
+    return main_row
+
+
+def write_packed_dir(np, directory, n, size, seed):
+    """A packed shard directory (`fidm_tpu_torch.data.shards` format) of n
+    random uint8 images, written with numpy alone."""
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    np.save(directory / "shard_00000.npy",
+            rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8))
+    index = {"img_size": size, "num_images": n,
+             "shards": [{"file": "shard_00000.npy", "count": n}],
+             "paths": [f"synthetic_{i:03d}.png" for i in range(n)]}
+    (directory / "index.json").write_text(json.dumps(index))
+
+
+def cli_stages(torch, np, ckpt, cfg, out):
+    """Where the quantize CLI's wall time goes: its stages, run one by one as
+    `fidm_tpu_torch.cli.quantize.main` runs them, host clock around each
+    (ending in a synchronize), and the device time of the quantize stage
+    by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fidm_tpu_torch.models.weights import jax_tree_from_state_dict, load_adm_checkpoint
+    from fidm_tpu_torch.quant import flatten_quantized, quantize_params
+
+    times = {}
+    t0 = time.perf_counter()
+    sd = load_adm_checkpoint(str(ckpt), cfg)
+    times["load .pt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = jax_tree_from_state_dict({k: v.to("cuda") for k, v in sd.items()}, cfg)
+    torch.cuda.synchronize()
+    times["to device, JAX layout"] = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        qp = quantize_params(params)
+        torch.cuda.synchronize()
+        times["quantize"] = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    t0 = time.perf_counter()
+    flat = flatten_quantized(qp)
+    times["to host"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.savez_compressed(out, **flat)
+    times["savez_compressed"] = time.perf_counter() - t0
+    busy = f"{busy:.4f} ms" if busy > 0 else "not measured (the profiler recorded none)"
+    print("[5] quantize CLI stages, s: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f"; the quantize stage's device time {busy}", flush=True)
 
 
 def redraw_zero_convs(torch, model, seed):
@@ -206,11 +334,16 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the GPU only")
     try:
+        import numpy as np
         import torch.nn.functional as F
         from fidm_tpu_torch import InpaintingPipeline, PipelineConfig
+        from fidm_tpu_torch.cli import quantize as quantize_cli
         from fidm_tpu_torch.models import InpaintingUNet
         from fidm_tpu_torch.models.layers import AttentionBlock
         from fidm_tpu_torch.ops import LAUNCHES, attention, build, kernel_override
+        from fidm_tpu_torch.ops import quantize as quantize_ops
+        from fidm_tpu_torch.quant import int8 as quant_int8
+        from fidm_tpu_torch.quant import load_quantized_state_dict
         from fidm_tpu_torch.sampling.sampler import _ddim_tables
     except ImportError as e:
         fail(f"the fidm_tpu_torch package is not importable from here: {e}")
@@ -224,6 +357,12 @@ def main():
     print(smi, flush=True)
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    try:
+        import PIL
+        pil = f"yes, Pillow {PIL.__version__}"
+    except ImportError as e:
+        pil = f"no ({e})"
+    print(f"[1] PIL imports: {pil}", flush=True)
     t0 = time.perf_counter()
     logs = build.build_all()
     regs = [ln.strip() for log in logs.values() for ln in log.splitlines()
@@ -238,6 +377,11 @@ def main():
           "*_ms: device time by torch.profiler; wrapper call: CUDA events around "
           "back-to-back calls, host cost included", flush=True)
     main_row = phase_kernels(torch, F, attention, kernel_override)
+    print("[2] quantize kernel vs plain version (tolerance 0: both draw the same "
+          "Philox bits and divide in IEEE float32). nearest_torch: the "
+          "round-to-nearest torch path, for context (no one PyTorch call rounds "
+          "stochastically)", flush=True)
+    quant_row = phase_quantize_kernel(torch, quantize_ops, quant_int8, kernel_override)
 
     # 3. the main path at full width
     config = PipelineConfig()
@@ -335,11 +479,88 @@ def main():
     check(torch.equal(out_plain[keep], gt[keep]), "plain path: known pixels differ")
     check(hole.mean().item() <= IMAGE_MEAN_TOL, "kernel and plain paths disagree")
 
-    # 5. the record
+    # 5. the quantization path at full width
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "ffhq256_random.pt"
+        torch.save({k: v.cpu() for k, v in pipe.model.state_dict().items()}, ckpt)
+        print(f"[5] wrote phase 3's model as an ADM checkpoint, "
+              f"{ckpt.stat().st_size} bytes", flush=True)
+
+        def quantize(out, *extra):
+            for name in build.KERNELS:
+                LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            report = quantize_cli.main(["--checkpoint", str(ckpt), "--out", str(out),
+                                        *extra])
+            torch.cuda.synchronize()
+            return report, time.perf_counter() - t0, {n: LAUNCHES[n] for n in build.KERNELS}
+
+        report, quant_s, quant_launches = quantize(tmp / "int8.npz")
+        print(f"[5] quantize CLI (absmax): {quant_s:.4f} s wall, compression "
+              f"{report['compression']}, {report['tensors_quantized']} tensors, "
+              f"launches {quant_launches}", flush=True)
+        check(report["tensors_quantized"] == QUANT_TENSORS,
+              f"{report['tensors_quantized']} tensors quantized, not {QUANT_TENSORS}")
+        check(quant_launches["quantize"] == QUANT_LAUNCHES,
+              f"quantize kernel launches {quant_launches['quantize']} != {QUANT_LAUNCHES}")
+        cli_stages(torch, np, ckpt, config.unet, tmp / "stages.npz")
+        report2, again_s, _ = quantize(tmp / "int8_again.npz")
+        with np.load(tmp / "int8.npz") as a, np.load(tmp / "int8_again.npz") as b:
+            same = a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+        print(f"[5] the same command again: {again_s:.4f} s wall; bit-identical "
+              f".npz: {same}", flush=True)
+        check(same and report2 == report, "the same seed gave another .npz")
+
+        write_packed_dir(np, tmp / "calib", 8, config.unet.image_size, seed=4)
+        report_cal, cal_s, cal_launches = quantize(
+            tmp / "int8_calibrated.npz", "--calibrate", str(tmp / "calib"),
+            "--calib_samples", "8", "--calib_batch", "4")
+        print(f"[5] quantize CLI --calibrate (8 images, 2 batches of 4): {cal_s:.4f} s "
+              f"wall, compression {report_cal['compression']}, launches {cal_launches}",
+              flush=True)
+        check(report_cal["calibrated"] and report_cal["tensors_quantized"] == QUANT_TENSORS,
+              f"calibrated report {report_cal}")
+
+        qpipe = InpaintingPipeline.create(config, seed=0, device="cuda")
+        qpipe.model.load_state_dict(
+            load_quantized_state_dict(str(tmp / "int8.npz"), config.unet), strict=True)
+
+    for name in build.KERNELS:
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    out_q = qpipe.inpaint(gt, mask, 0)
+    torch.cuda.synchronize()
+    q_seconds = time.perf_counter() - t0
+    q_launches = {name: LAUNCHES[name] for name in build.KERNELS}
+    hole_q = (out_q - out).abs()[~keep].mean().item()
+    print(f"[5] DDIM-100 inpaint on the int8 weights, B={BATCH}: {q_seconds:.4f} s per "
+          f"call, {q_seconds / BATCH:.4f} s per sample; launches {q_launches}; hole "
+          f"mean |int8 - phase 3| {hole_q:.4g}", flush=True)
+    check(bool(torch.isfinite(out_q).all()), "int8 weights: non-finite output")
+    check(torch.equal(out_q[keep], gt[keep]), "int8 weights: known pixels differ from gt")
+    check(q_launches["attention"] == n_attn * n_steps, "int8 weights: attention launches")
+    f32_int8 = InpaintingUNet(f32_model.config)
+    f32_int8.load_state_dict(qpipe.model.state_dict())
+    f32_int8 = f32_int8.to("cuda").eval()
+    with torch.inference_mode():
+        yq, yf = qpipe.model(x, t, masked, mask), pipe.model(x, t, masked, mask)
+        e_q32 = rel(f32_int8(x, t, masked, mask), yk32)
+    e_q = rel(yq, yf)
+    print(f"[5] one UNet forward, int8 against float32 weights, max abs / max "
+          f"|float32 weights|: bf16 {e_q:.4g} (tol {QUANT_UNET_TOL}); float32 model "
+          f"{e_q32:.4g}", flush=True)
+    check(e_q <= QUANT_UNET_TOL, "int8 weights: the UNet forward moved too far")
+
+    # 6. the record
     kernels = [dict(name="attention", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
-                    launches=launches["attention"], **main_row)]
+                    launches=launches["attention"], **main_row),
+               dict(name="quantize", route="cuda",
+                    source="fidm_tpu_torch/ops/csrc/quantize.cu",
+                    replaces="fidm_tpu/quant/int8.py:28",
+                    launches=quant_launches["quantize"], **quant_row)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,16 @@ Dtype policy, as in the JAX package: parameters are float32, activations run
 in the model's compute dtype (bf16 on the card), and each layer casts its
 parameters to that dtype when it runs. GroupNorm statistics and the
 attention softmax are float32.
+
+`conv` and `linear` apply every convolution and dense layer of the model;
+inside `capture_inputs(fn)` each of them first hands its module and input to
+`fn` (calibration records input statistics there).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +27,7 @@ from torch import nn
 from ..ops.attention import qkv_attention
 
 __all__ = [
+    "capture_inputs",
     "timestep_embedding",
     "GroupNorm32",
     "Upsample",
@@ -45,14 +51,35 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 1000
     return embedding
 
 
+# fn(module, input, channel_dim), or None: see `capture_inputs`
+_capture: Optional[Callable[[nn.Module, torch.Tensor, int], None]] = None
+
+
+@contextlib.contextmanager
+def capture_inputs(fn: Callable[[nn.Module, torch.Tensor, int], None]):
+    """Inside the block, `conv` and `linear` call fn(module, x, channel_dim)
+    with their input before applying the module: channel_dim is 1 for a
+    conv (NCHW) and -1 for a dense layer ([..., C])."""
+    global _capture
+    prev, _capture = _capture, fn
+    try:
+        yield
+    finally:
+        _capture = prev
+
+
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """`m` applied in the dtype of `x`."""
+    if _capture is not None:
+        _capture(m, x, 1)
     return F.conv2d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), m.stride, m.padding)
 
 
 def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """An nn.Linear, or a kernel-size-1 nn.Conv1d as ADM stores qkv and
     proj_out, applied to the last axis of `x` in its dtype."""
+    if _capture is not None:
+        _capture(m, x, -1)
     w = m.weight if m.weight.ndim == 2 else m.weight[..., 0]
     return F.linear(x, w.to(x.dtype), m.bias.to(x.dtype))
 

@@ -5,7 +5,10 @@ key map: `torch_key_map` replays the UNet construction loop and pairs each
 Flax parameter path of the JAX package with its ADM torch prefix.
 
 - `state_dict_from_jax` turns the JAX package's `{"params": {"base": ...}}`
-  tree (numpy arrays) into the port's state dict.
+  tree (numpy arrays) into the port's state dict; `jax_tree_from_state_dict`
+  is its inverse.
+- `flax_module_paths` names each conv and dense module of a port model by
+  its Flax module path.
 - `load_adm_checkpoint` reads an ADM `.pt` and widens a 3-channel first conv
   to `cfg.in_channels`: RGB weights into channels 0-2, zeros elsewhere.
 """
@@ -15,10 +18,15 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .unet import UNetConfig
 
-__all__ = ["torch_key_map", "state_dict_from_jax", "load_adm_checkpoint"]
+__all__ = ["torch_key_map", "state_dict_from_jax", "jax_tree_from_state_dict",
+           "flax_module_paths", "load_adm_checkpoint"]
+
+# kinds of torch_key_map entries that are a conv or dense layer in Flax
+_LAYER_KINDS = ("conv", "linear", "qkv", "proj1d")
 
 
 def torch_key_map(cfg: UNetConfig) -> List[Tuple[Tuple[str, ...], str, str]]:
@@ -153,6 +161,54 @@ def state_dict_from_jax(variables: Dict, cfg: UNetConfig) -> Dict[str, torch.Ten
     if missing:
         raise KeyError(f"missing flax params: {missing[:5]} (+{max(len(missing) - 5, 0)} more)")
     return sd
+
+
+def _convert(kind: str, weight: torch.Tensor, bias) -> Dict[str, torch.Tensor]:
+    """Torch weight and bias -> Flax leaf dict, in the order of the JAX
+    package's `torch_import._convert`."""
+    if kind == "conv":  # OIHW -> HWIO
+        return {"kernel": weight.permute(2, 3, 1, 0).contiguous(), "bias": bias}
+    if kind == "linear":  # [out, in] -> [in, out]
+        return {"kernel": weight.t().contiguous(), "bias": bias}
+    if kind == "groupnorm":
+        return {"scale": weight, "bias": bias}
+    if kind in ("qkv", "proj1d"):  # Conv1d [out, in, 1] -> Dense [in, out]
+        return {"kernel": weight[..., 0].t().contiguous(), "bias": bias}
+    if kind == "embed":
+        return {"embedding": weight}
+    raise ValueError(kind)
+
+
+def jax_tree_from_state_dict(sd: Dict[str, torch.Tensor], cfg: UNetConfig) -> Dict:
+    """The JAX package's `{"base": {...}}` parameter tree, in its layout,
+    from the port's state dict: the inverse of `state_dict_from_jax`. Leaves
+    stay tensors on their device. Keys come in the order of the JAX
+    package's tree for a loaded checkpoint (`torch_import.convert_state_dict`),
+    which fixes each weight's quantization seed and the order of a quantized
+    `.npz`."""
+    tree: Dict = {}
+    missing = []
+    for flax_path, prefix, kind in torch_key_map(cfg):
+        weight = sd.get(f"{prefix}.weight")
+        if weight is None:
+            missing.append(f"{prefix}.weight")
+            continue
+        node = tree
+        for p in flax_path[:-1]:
+            node = node.setdefault(p, {})
+        leaves = _convert(kind, weight, sd.get(f"{prefix}.bias"))
+        node[flax_path[-1]] = {k: v for k, v in leaves.items() if v is not None}
+    if missing:
+        raise KeyError(f"missing torch keys: {missing[:5]} (+{max(len(missing) - 5, 0)} more)")
+    return {"base": tree}
+
+
+def flax_module_paths(model: nn.Module, cfg: UNetConfig) -> Dict[nn.Module, Tuple[str, ...]]:
+    """Each conv and dense module of `model` (an `InpaintingUNet` or `UNet`
+    of `cfg`) -> its Flax module path in the JAX `InpaintingUNet`, e.g.
+    ("base", "in_1_res", "in_conv")."""
+    return {model.get_submodule(prefix): ("base",) + flax_path
+            for flax_path, prefix, kind in torch_key_map(cfg) if kind in _LAYER_KINDS}
 
 
 def load_adm_checkpoint(path: str, cfg: UNetConfig) -> Dict[str, torch.Tensor]:

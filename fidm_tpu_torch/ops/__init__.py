@@ -1,4 +1,6 @@
 from .attention import qkv_attention
-from .registry import LAUNCHES, kernel_override, use_kernel
+from .quantize import stochastic_quantize
+from .registry import LAUNCHES, OPS, kernel_override, use_kernel
 
-__all__ = ["LAUNCHES", "kernel_override", "qkv_attention", "use_kernel"]
+__all__ = ["LAUNCHES", "OPS", "kernel_override", "qkv_attention", "stochastic_quantize",
+           "use_kernel"]

@@ -15,7 +15,10 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["use_kernel", "kernel_override", "LAUNCHES"]
+__all__ = ["OPS", "use_kernel", "kernel_override", "LAUNCHES"]
+
+# the ops that have a kernel (ops/attention.py, ops/quantize.py)
+OPS = ("attention", "quantize")
 
 _overrides: Dict[str, Optional[bool]] = {}
 
@@ -24,8 +27,14 @@ _overrides: Dict[str, Optional[bool]] = {}
 LAUNCHES: collections.Counter = collections.Counter()
 
 
+def _known(op: str) -> str:
+    if op not in OPS:
+        raise KeyError(f"no kernel is registered for op {op!r}; ops: {OPS}")
+    return op
+
+
 def use_kernel(op: str, device: torch.device) -> bool:
-    forced = _overrides.get(op)
+    forced = _overrides.get(_known(op))
     if device.type != "cuda":
         if forced:
             raise RuntimeError(f"{op}: the kernel runs on CUDA tensors only, "
@@ -38,6 +47,7 @@ def use_kernel(op: str, device: torch.device) -> bool:
 def kernel_override(value: Optional[bool], op: str):
     """Force the kernel on (True) or off (False) for `op` inside the block,
     then restore what was set before."""
+    _known(op)
     prev = _overrides.get(op)
     _overrides[op] = value
     try:

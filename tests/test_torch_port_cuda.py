@@ -17,6 +17,8 @@ from fidm_tpu_torch.models import UNetConfig
 from fidm_tpu_torch.models.layers import AttentionBlock
 from fidm_tpu_torch.ops import LAUNCHES, kernel_override, qkv_attention
 from fidm_tpu_torch.ops import attention as port_attention
+from fidm_tpu_torch.ops import quantize as port_quantize
+from fidm_tpu_torch.quant import quantize_tensor
 from fidm_tpu_torch.sampling import SamplerConfig
 
 pytestmark = pytest.mark.cuda
@@ -103,3 +105,71 @@ def test_small_pipeline_runs_through_the_kernel(cuda):
     uint8 = pipe.inpaint(gt, mask, 0, sampler=dataclasses.replace(cfg.sampler,
                                                                   output_dtype="uint8"))
     assert uint8.dtype == torch.uint8 and uint8.is_cuda
+
+
+def _weights(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((0.05 * rng.standard_normal(shape)).astype(np.float32)).to(device)
+
+
+# tile-aligned shapes of the FFHQ-256 UNet and ragged ones the kernel takes
+# too; tolerance 0: kernel and plain version draw the same Philox bits and
+# divide in IEEE float32
+@pytest.mark.parametrize("n,c", [(4608, 512), (512, 1536), (1152, 128), (100, 200),
+                                 (1, 1), (3, 5), (257, 33)])
+@pytest.mark.parametrize("seed", [1, 2 ** 32 - 1])
+def test_quantize_kernel_matches_plain_bit_for_bit(cuda, n, c, seed):
+    x = _weights((n, c), n + c, cuda)
+    before = LAUNCHES["quantize"]
+    values, scales = port_quantize.stochastic_quantize(x, seed)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quantize"] == before + 1
+    assert values.dtype == torch.int8 and values.shape == (n, c)
+    assert scales.dtype == torch.float32 and scales.shape == (1, c)
+    with kernel_override(False, "quantize"):
+        ref_values, ref_scales = port_quantize.stochastic_quantize(x, seed)
+    assert LAUNCHES["quantize"] == before + 1
+    assert torch.equal(scales, ref_scales)
+    assert torch.equal(values, ref_values)
+
+
+def test_quantize_kernel_takes_an_unaligned_view(cuda):
+    flat = _weights((1 + 16 * 128,), 9, cuda)
+    x = flat[1:].view(16, 128)  # contiguous, 4 bytes past an aligned address
+    values, scales = port_quantize._quantize_cuda(x, 3)
+    ref_values, ref_scales = port_quantize._quantize_stochastic_reference(x, 3)
+    assert torch.equal(values, ref_values) and torch.equal(scales, ref_scales)
+
+
+def test_quantize_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = _weights((16, 128), 10, cuda)
+    with pytest.raises(TypeError):
+        port_quantize._quantize_cuda(x.double(), 0)
+    with pytest.raises(TypeError):
+        port_quantize._quantize_cuda(x.reshape(2, 8, 128), 0)
+    with pytest.raises(ValueError):
+        port_quantize._quantize_cuda(x.t(), 0)
+    with pytest.raises(ValueError):
+        port_quantize._quantize_cuda(x[:0], 0)
+
+
+def test_quantize_tensor_dispatch_on_the_card(cuda):
+    """The JAX rule: the kernel for [N, C] with N % 8 == 0 and C % 128 == 0,
+    nearest rounding (bit-equal to the CPU's) for the rest and inside
+    kernel_override(False)."""
+    for shape, kernel in (((3, 3, 128, 128), True), ((81, 128), False), ((1152, 6), False)):
+        w = _weights(shape, 11, cuda)
+        before = LAUNCHES["quantize"]
+        out = quantize_tensor(w, seed=5)
+        assert LAUNCHES["quantize"] == before + kernel, shape
+        cpu = quantize_tensor(w.cpu(), seed=5)
+        assert torch.equal(out["scale"].cpu(), cpu["scale"])
+        if kernel:
+            ref = port_quantize._quantize_stochastic_reference(w.reshape(-1, shape[-1]), 5)[0]
+            assert torch.equal(out["q"].reshape(-1, shape[-1]), ref)
+            with kernel_override(False, "quantize"):
+                nearest = quantize_tensor(w, seed=5)
+            assert LAUNCHES["quantize"] == before + 1
+            assert torch.equal(nearest["q"].cpu(), cpu["q"])
+        else:
+            assert torch.equal(out["q"].cpu(), cpu["q"])

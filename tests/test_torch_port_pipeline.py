@@ -163,11 +163,17 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_package_imports_no_jax():
-    """`fidm_tpu_torch` stands alone: importing all of it loads no JAX, Flax
-    or `fidm_tpu` module."""
+    """`fidm_tpu_torch` stands alone: importing every module of it (the
+    quantization, data and CLI modules included) loads no JAX, Flax or
+    `fidm_tpu` module."""
     code = (
-        "import sys, fidm_tpu_torch, fidm_tpu_torch.ops.build, "
-        "fidm_tpu_torch.models.weights\n"
+        "import importlib, pkgutil, sys, fidm_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(fidm_tpu_torch.__path__, "
+        "'fidm_tpu_torch.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "assert {'fidm_tpu_torch.quant.int8', 'fidm_tpu_torch.quant.calibrate', "
+        "'fidm_tpu_torch.ops.quantize', 'fidm_tpu_torch.data.dataset', "
+        "'fidm_tpu_torch.cli.quantize'} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fidm_tpu'))\n"
         "print(bad)\n"
