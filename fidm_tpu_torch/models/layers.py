@@ -199,11 +199,13 @@ class AttentionBlock(nn.Module):
         tokens = self.norm(x).reshape(b, c, s).transpose(1, 2)  # [B, S, C]
         qkv = linear(self.qkv, tokens)
         # channel split as a 1x1 conv over 3C channels, chunk(3) order: all
-        # of q, then all of k, then all of v; each then splits into heads
+        # of q, then all of k, then all of v; each then splits into heads.
+        # The attention kernel reads these strided views in place (s-stride
+        # 3C, h-stride D), so no copy is made
         q, k, v = qkv.chunk(3, dim=-1)
 
         def heads_first(a):
-            return a.reshape(b, s, heads, c // heads).transpose(1, 2).contiguous()
+            return a.reshape(b, s, heads, c // heads).transpose(1, 2)
 
         out = qkv_attention(heads_first(q), heads_first(k), heads_first(v))
         out = linear(self.proj_out, out.transpose(1, 2).reshape(b, s, c))

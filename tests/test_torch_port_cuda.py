@@ -42,8 +42,8 @@ def _qkv(shape, seed, dtype, device):
 # f32: the sums run in another order. bf16: the plain version rounds
 # q*scale, k*scale, the logits and the softmax to bf16, the kernel keeps f32
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("s,d", [(1, 64), (64, 64), (256, 64), (100, 32), (1024, 128),
-                                 (4096, 64)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 15, 64, 65, 100, 256, 257, 1024, 4096])
 def test_kernel_matches_plain(cuda, s, d, dtype, atol):
     q, k, v = _qkv((2, 8, s, d), 5, dtype, cuda)
     before = LAUNCHES["attention"]
@@ -55,6 +55,84 @@ def test_kernel_matches_plain(cuda, s, d, dtype, atol):
         ref = qkv_attention(q, k, v)
     assert LAUNCHES["attention"] == before + 1
     assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+# The bf16 kernel against the plain version run in float32 on the same bf16
+# inputs. The kernel rounds only P (unnormalised, <= 1) and its output to
+# bf16: the output's rounding is at most 2^-8 of its magnitude, and P's adds
+# at most a few 1e-3 beyond it. The bf16 plain version, which also rounds
+# q*scale, k*scale and the logits, moves about 1e-2 on such inputs
+# (chip_smoke.py phase 2 prints both beside each other).
+BF16_F32_RTOL = 2.0 ** -8
+BF16_F32_ATOL = 3e-3
+
+
+@pytest.mark.parametrize("s,d", [(15, 32), (64, 64), (256, 64), (257, 128), (1024, 64),
+                                 (4096, 64)])
+def test_bf16_kernel_keeps_float32(cuda, s, d):
+    q, k, v = _qkv((2, 8, s, d), 8, torch.bfloat16, cuda)
+    out = port_attention._attention_cuda(q, k, v).float()
+    ref = port_attention._attention_reference(q.float(), k.float(), v.float())
+    with kernel_override(False, "attention"):
+        plain = qkv_attention(q, k, v).float()
+    err = (out - ref).abs()
+    assert (err - BF16_F32_RTOL * ref.abs()).max().item() <= BF16_F32_ATOL
+    assert err.max().item() <= (plain - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(100, 32), (256, 64), (64, 128)])
+def test_strided_views_match_contiguous_bit_for_bit(cuda, s, d, dtype):
+    """The q/k/v chunks of one [B, S, 3C] projection, heads split out, as the
+    UNet's AttentionBlock passes them, against their contiguous copies."""
+    b, h = 2, 4
+    rng = np.random.default_rng(s + d)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32))
+    qkv = qkv.to(cuda, dtype)
+    q, k, v = (a.reshape(b, s, h, d).transpose(1, 2) for a in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    out = port_attention._attention_cuda(q, k, v)
+    ref = port_attention._attention_cuda(q.contiguous(), k.contiguous(), v.contiguous())
+    assert out.is_contiguous() and torch.equal(out, ref)
+    # a permuted contiguous tensor ([B, S, H, D] read as [B, H, S, D]) too
+    p = torch.randn(b, s, h, d, device=cuda).to(dtype).transpose(1, 2)
+    assert torch.equal(port_attention._attention_cuda(p, k, v),
+                       port_attention._attention_cuda(p.contiguous(), k, v))
+
+
+def test_misaligned_view_raises(cuda):
+    flat = torch.zeros(1 + 2 * 4 * 64 * 64, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(2, 4, 64, 64)  # 2 bytes past an aligned address
+    k = torch.zeros(2, 4, 64, 64, device=cuda, dtype=torch.bfloat16)
+    before = LAUNCHES["attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port_attention._attention_cuda(q, k, k)
+    odd = torch.zeros(2, 64, 4 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    odd = odd[..., :256].reshape(2, 64, 4, 64).transpose(1, 2)  # s-stride 260 x 2 B
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port_attention._attention_cuda(k, odd, k)
+    assert LAUNCHES["attention"] == before
+
+
+@pytest.mark.parametrize("s,d", [(1, 64), (64, 64), (100, 32), (256, 64), (257, 128),
+                                 (1024, 64)])
+def test_bf16_tilings_agree(cuda, s, d):
+    """Every key-group count the kernel is built for, whatever `_key_groups`
+    picks: two key groups sum P v in another order and round P against each
+    group's own running max, so each is held to the float32 bound of
+    `test_bf16_kernel_keeps_float32`."""
+    q, k, v = _qkv((2, 8, s, d), 9, torch.bfloat16, cuda)
+    ref = port_attention._attention_reference(q.float(), k.float(), v.float())
+    before = {n: LAUNCHES[n] for n in ("attention.bf16", "attention.f32")}
+    for groups in port_attention.KEY_GROUPS:
+        out = port_attention._attention_cuda(q, k, v, groups)
+        err = (out.float() - ref).abs() - BF16_F32_RTOL * ref.abs()
+        assert err.max().item() <= BF16_F32_ATOL, groups
+    assert LAUNCHES["attention.bf16"] == (before["attention.bf16"]
+                                          + len(port_attention.KEY_GROUPS))
+    assert LAUNCHES["attention.f32"] == before["attention.f32"]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        port_attention._attention_cuda(q, k, v, 3)
 
 
 def test_backward_recomputes_plain(cuda):
