@@ -13,7 +13,9 @@ Phases, one line each (or a few), any failure exits non-zero:
 2. each kernel against its plain PyTorch version on the card, with its time
    beside the plain version's, a PyTorch call's and its bound: attention
    over sequence lengths, head dims and dtypes; the int8 quantizer at the
-   FFHQ-256 UNet's weight shapes and a ragged one, bit for bit;
+   FFHQ-256 UNet's weight shapes, a ragged one and a tall one that streams,
+   bit for bit, cold and warm, one device operation per call, with its
+   launch geometry;
 3. the main path at full width: `InpaintingPipeline.create(PipelineConfig())`
    (the FFHQ-256 UNet, random weights from seed 0 with every zero-initialised
    conv re-drawn so that the output is not identically 0), DDIM-100 on a
@@ -22,7 +24,8 @@ Phases, one line each (or a few), any failure exits non-zero:
    one full-width UNet forward kernel against plain;
 5. the quantization path at full width: phase 3's model written as an ADM
    `.pt`, `fidm_tpu_torch.cli.quantize` on it (absmax, through the quantize
-   kernel; twice, bit-identical; then `--calibrate` on a packed shard
+   kernel; every kernel-rounded tensor of the `.npz` against the plain
+   version; twice, bit-identical; then `--calibrate` on a packed shard
    directory written with numpy), the absmax `.npz` loaded into a pipeline,
    DDIM-100 on it with phase 3's inputs and seed, and one UNet forward
    quantized against unquantized;
@@ -35,6 +38,7 @@ float32 wherever numbers are compared. Without a CUDA device, or without the
 result.
 """
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -66,9 +70,12 @@ UNET_F32_TOL = 1e-4
 UNET_BF16_TOL = 5e-2
 IMAGE_MEAN_TOL = 5e-2
 # The quantizer at the shapes the FFHQ-256 UNet gives it ([rows, out channels]:
-# the 3x3 convs at 512 out and 1024/1536/768 in, qkv, a 3x3 conv at 128 out)
-# and a ragged one that the kernel takes though the dispatch never sends it.
-QUANT_SHAPES = ((9216, 512), (4608, 512), (512, 1536), (1152, 128), (100, 200))
+# the 3x3 convs at 512 out and 1024/1536/768 in, qkv, a 3x3 conv at 128 out),
+# a ragged one that the kernel takes though the dispatch never sends it, and
+# two tall ones whose strips exceed what a cluster of 8 CTAs holds in shared
+# memory, so that its CTAs stream part of their rows.
+QUANT_SHAPES = ((9216, 512), (4608, 512), (512, 1536), (1152, 128), (100, 200), (16384, 512),
+                (32768, 256))
 QUANT_SEED = 7
 # Phase 5. The FFHQ-256 model at the JAX dispatch rule: 116 kernels quantized,
 # 114 of them [N, C] with N % 8 == 0 and C % 128 == 0 (the kernel's launches).
@@ -157,9 +164,9 @@ def ptxas_summary(log, kernel):
         if m:
             name = m.group(1)
             continue
-        m = re.search(rf"({kernel}\w*?)I(\w*?)EEv", name or "")
+        m = re.search(rf"({kernel}\w*?)(?:I(\w*?)EEv|E)", name or "")
         if m and ("registers" in ln or "spill" in ln):
-            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
             found.setdefault(f"{m.group(1)}<{args}>", []).append(
                 re.sub(r"^ptxas info\s*:\s*", "", ln.strip()))
     return [f"{inst}: {'; '.join(lines)}" for inst, lines in sorted(found.items())]
@@ -236,17 +243,41 @@ def phase_kernels(torch, F, attention, kernel_override):
 def quantize_bound(n, c):
     """(bound_ms, bound_by) for one [n, c] quantize call: x read once, the
     int8 values and float32 scales written once. Its operations (a Philox
-    call per four elements, a division per element) are far below the
-    card's rate."""
+    call per four elements, a division per element) are below the card's
+    rate."""
     return (5 * n * c + 4 * c) / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
-def phase_quantize_kernel(torch, quantize_ops, quant_int8, kernel_override):
-    """Phase 2: the quantize kernel against its plain version, bit for bit.
-    Returns the row measured at the largest shape."""
-    main_row = None
+def device_kernels(torch, fn, n=10, tries=10):
+    """Device operations (kernels and memsets) per call of `fn` and their
+    names, by torch.profiler. A session with no device event at all (about
+    one in a few hundred) is run again; after `tries` such sessions it fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(e.count for e in events) / n, sorted(e.key[:60] for e in events)
+    fail(f"the profiler recorded no device operation in {tries} sessions")
+
+
+def quantize_shapes(torch, quantize_ops):
+    """For each of QUANT_SHAPES, the quantize kernel of `quantize_ops` (this
+    checkout's, or another's for an A/B: see the verify skill) held bit for
+    bit against its plain version, and its device time cold (each call on
+    another copy of x, the copies together more than twice the L2 cache, as
+    the CLI finds every weight cold) and warm (the same x again). Yields (n,
+    c, x, max_abs_err, cold_ms, warm_ms)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
+    l2 = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
     for n, c in QUANT_SHAPES:
         x = 0.05 * torch.randn(n, c, device="cuda", generator=g)
         x[0, 0] = 0.0
@@ -255,25 +286,62 @@ def phase_quantize_kernel(torch, quantize_ops, quant_int8, kernel_override):
         ref_values, ref_scales = quantize_ops._quantize_stochastic_reference(x, QUANT_SEED)
         err = max((values.int() - ref_values.int()).abs().max().item(),
                   (scales - ref_scales).abs().max().item())
-        differ = int((values != ref_values).sum().item())
-        ms = device_ms(torch, lambda: quantize_ops._quantize_cuda(x, QUANT_SEED))
+        check(err == 0 and torch.equal(values, ref_values) and torch.equal(scales, ref_scales),
+              f"quantize kernel disagrees with its plain version at [{n}, {c}]: "
+              f"{int((values != ref_values).sum().item())} values differ")
+        del values, scales, ref_values, ref_scales
+        copies = [x] + [x.clone() for _ in range(max(1, -(-2 * l2 // (4 * n * c))))]
+        cycle = itertools.cycle(copies)
+        cold_ms = device_ms(torch, lambda: quantize_ops._quantize_cuda(next(cycle), QUANT_SEED))
+        del copies, cycle
+        warm_ms = device_ms(torch, lambda: quantize_ops._quantize_cuda(x, QUANT_SEED))
+        print(f"  quantize f32 [{n}, {c}]: max_abs_err={err:.3g} (tol 0) cold_ms={cold_ms:.5f} "
+              f"warm_ms={warm_ms:.5f}", flush=True)
+        yield n, c, x, err, cold_ms, warm_ms
+        del x
+    torch.cuda.empty_cache()
+
+
+def phase_quantize_kernel(torch, quantize_ops, quant_int8, kernel_override):
+    """Phase 2: the quantize kernel against its plain version (bit for bit,
+    cold and warm: `quantize_shapes`), beside the plain version's time and
+    its bound, the device operations of one call (gated at 1) and its
+    launch geometry. Returns the row measured at the largest shape."""
+    main_row, table = None, []
+    device = torch.cuda.current_device()
+    smem, static_smem, fits = quantize_ops._card(device)
+    print(f"      the card: {smem} bytes of shared memory a block, the kernel's static "
+          f"{static_smem}; clusters of 1..{len(fits)} CTAs held at once: {fits}", flush=True)
+    for n, c, x, err, cold_ms, ms in quantize_shapes(torch, quantize_ops):
         call_ms = cuda_ms(torch, lambda: quantize_ops._quantize_cuda(x, QUANT_SEED))
+        ops, names = device_kernels(torch, lambda: quantize_ops._quantize_cuda(x, QUANT_SEED))
         plain_ms = device_ms(
             torch, lambda: quantize_ops._quantize_stochastic_reference(x, QUANT_SEED))
         with kernel_override(False, "quantize"):
             nearest_ms = device_ms(torch, lambda: quant_int8.quantize_tensor(x))
         bound_ms, bound_by = quantize_bound(n, c)
-        print(f"  quantize f32 [{n}, {c}]: max_abs_err={err:.3g} ({differ} values "
-              f"differ; tol 0) kernel_ms={ms:.5f} (wrapper call {call_ms:.5f}) "
-              f"plain_ms={plain_ms:.5f} nearest_torch_ms={nearest_ms:.5f} "
-              f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
-        check(err == 0 and torch.equal(values, ref_values) and torch.equal(scales, ref_scales),
-              f"quantize kernel disagrees with its plain version at [{n}, {c}]")
+        geo = quantize_ops._geometry(n, c, device)
+        fit = quantize_ops.max_active_clusters(geo.cluster, device)
+        print(f"      wrapper call {call_ms:.5f} ms, plain_ms={plain_ms:.5f} "
+              f"nearest_torch_ms={nearest_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}) "
+              f"bound/cold={bound_ms / cold_ms:.3f}; device operations per call: {ops} "
+              f"{names}", flush=True)
+        print(f"      geometry: {geo.strips} strips of {geo.strip} columns, clusters of "
+              f"{geo.cluster} CTAs, {geo.ctas} CTAs, {geo.rows_per_cta} rows per CTA, "
+              f"{geo.hold_rows} held in {geo.smem_bytes} bytes of shared memory; the card "
+              f"holds {fit} such clusters at once "
+              f"({'one wave' if geo.strips <= fit else 'waves'})", flush=True)
+        check(fit >= 1, f"no cluster of {geo.cluster} CTAs fits the card")
+        check(ops == 1, f"one quantize call ran {ops} device operations, not 1: {names}")
+        table.append((n, c, cold_ms, ms, bound_ms, ops))
         if (n, c) == QUANT_SHAPES[0]:
-            main_row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            main_row = dict(max_abs_err=err, ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None)
-        del x, values, scales, ref_values, ref_scales
-    torch.cuda.empty_cache()
+    print("[2] quantize summary: shape | cold_ms | warm_ms | bound_ms | bound/cold | "
+          "device operations per call", flush=True)
+    for n, c, cold_ms, ms, bound_ms, ops in table:
+        print(f"      [{n}, {c}] | {cold_ms:.5f} | {ms:.5f} | {bound_ms:.6f} | "
+              f"{bound_ms / cold_ms:.3f} | {ops}", flush=True)
     return main_row
 
 
@@ -313,17 +381,55 @@ def cli_stages(torch, np, ckpt, cfg, out):
         qp = quantize_params(params)
         torch.cuda.synchronize()
         times["quantize"] = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    kernels = sum(e.count for e in events if "quantize_kernel" in e.key)
     t0 = time.perf_counter()
     flat = flatten_quantized(qp)
     times["to host"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     np.savez_compressed(out, **flat)
     times["savez_compressed"] = time.perf_counter() - t0
-    busy = f"{busy:.4f} ms" if busy > 0 else "not measured (the profiler recorded none)"
+    busy = (f"{busy:.4f} ms in {sum(e.count for e in events)} device operations, "
+            f"{kernels} of them the quantize kernel" if busy > 0
+            else "not measured (the profiler recorded none)")
     print("[5] quantize CLI stages, s: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
           + f"; the quantize stage's device time {busy}", flush=True)
+
+
+def check_cli_rounding(torch, np, ckpt, cfg, npz, quantize_ops, quant_int8, device="cuda"):
+    """The kernel-rounded tensors of the absmax CLI's `.npz`, each against
+    the plain version at the seed `quantize_params` gave it (seed 0 + its
+    place among the quantized tensors, in tree order). Returns (tensors
+    compared, names of those that differ)."""
+    from fidm_tpu_torch.models.weights import jax_tree_from_state_dict, load_adm_checkpoint
+
+    sd = load_adm_checkpoint(str(ckpt), cfg)
+    params = jax_tree_from_state_dict({k: v.to(device) for k, v in sd.items()}, cfg)
+    seed, compared, differ = 0, 0, []
+    with np.load(npz) as data:
+        def walk(tree, path):
+            nonlocal seed, compared
+            for k, v in tree.items():
+                p = path + (k,)
+                if isinstance(v, dict):
+                    walk(v, p)
+                elif quant_int8._is_quantizable(p, v, 4096):
+                    seed += 1
+                    x2d = v.reshape(-1, v.shape[-1]).float().contiguous()
+                    if x2d.shape[0] % 8 or x2d.shape[1] % 128:
+                        continue  # rounded to nearest, as the dispatch rule says
+                    ref_q, ref_s = quantize_ops._quantize_stochastic_reference(x2d, seed)
+                    name = "/".join(p)
+                    compared += 1
+                    if not (np.array_equal(data[name + ".__q__"].reshape(x2d.shape),
+                                           ref_q.cpu().numpy())
+                            and np.array_equal(data[name + ".__scale__"],
+                                               ref_s[0].cpu().numpy())):
+                        differ.append(name)
+
+        walk(params, ())
+    return compared, differ
 
 
 def redraw_zero_convs(torch, model, seed):
@@ -420,14 +526,15 @@ def main():
         pil = f"no ({e})"
     print(f"[1] PIL imports: {pil}", flush=True)
     t0 = time.perf_counter()
-    logs = build.build_all()
+    built = list(build.KERNELS)
+    logs = build.build_all(built)
     regs = [ln.strip() for log in logs.values() for ln in log.splitlines()
             if "registers" in ln]
-    print(f"[1] built {list(build.KERNELS)} in {time.perf_counter() - t0:.1f} s "
+    print(f"[1] built {built} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)}); ptxas: {sorted(set(regs))}", flush=True)
-    for line in ptxas_summary(logs.get("attention", ""), "attention_fwd_kernel"):
+    for line in (ptxas_summary(logs.get("attention", ""), "attention_fwd_kernel")
+                 + ptxas_summary(logs.get("quantize", ""), "quantize_kernel")):
         print(f"[1] ptxas {line}", flush=True)
-
     # 2. each kernel against its plain version
     print("[2] attention kernel vs plain version (tolerance: f32 1e-5, sums in "
           "another order; bf16 2e-2, the plain version rounds q*scale, k*scale, "
@@ -436,9 +543,10 @@ def main():
           "back-to-back calls, host cost included", flush=True)
     attn_rows = phase_kernels(torch, F, attention, kernel_override)
     print("[2] quantize kernel vs plain version (tolerance 0: both draw the same "
-          "Philox bits and divide in IEEE float32). nearest_torch: the "
-          "round-to-nearest torch path, for context (no one PyTorch call rounds "
-          "stochastically)", flush=True)
+          "Philox bits and divide in IEEE float32). cold: every call on another copy "
+          "of x, the copies more than twice the L2 cache; warm: the same x again. "
+          "nearest_torch: the round-to-nearest torch path, for context (no one "
+          "PyTorch call rounds stochastically)", flush=True)
     quant_row = phase_quantize_kernel(torch, quantize_ops, quant_int8, kernel_override)
 
     # 3. the main path at full width
@@ -566,6 +674,14 @@ def main():
               f"{report['tensors_quantized']} tensors quantized, not {QUANT_TENSORS}")
         check(quant_launches["quantize"] == QUANT_LAUNCHES,
               f"quantize kernel launches {quant_launches['quantize']} != {QUANT_LAUNCHES}")
+        t0 = time.perf_counter()
+        compared, differ = check_cli_rounding(torch, np, ckpt, config.unet, tmp / "int8.npz",
+                                              quantize_ops, quant_int8)
+        print(f"[5] the .npz's kernel-rounded tensors against the plain version at their "
+              f"seeds: {compared} compared, {len(differ)} differ "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(compared == QUANT_LAUNCHES and not differ,
+              f"{compared} kernel-rounded tensors compared, differing: {differ[:5]}")
         cli_stages(torch, np, ckpt, config.unet, tmp / "stages.npz")
         report2, again_s, _ = quantize(tmp / "int8_again.npz")
         with np.load(tmp / "int8.npz") as a, np.load(tmp / "int8_again.npz") as b:

@@ -16,7 +16,14 @@ Philox4x32-10 keyed by (seed, 0), the counter being the element's flat index
   is a transcription in int64 arithmetic masked to 32 bits (the 32x32->64
   multiply in 16-bit halves, so nothing overflows), so on the card it agrees
   with the kernel bit for bit.
-- `csrc/quantize.cu` is the kernel.
+- `csrc/quantize.cu` is the kernel: one launch that reads x once. One
+  thread-block cluster of at most 8 CTAs per strip of 32 or 16 columns, its
+  CTAs splitting the strip's rows; each CTA holds its rows in shared memory,
+  the cluster reduces the column maxima through distributed shared memory,
+  and each CTA rounds what it holds. `quantize_geometry` picks the strip
+  width, the cluster size and the rows each CTA holds from the shape and the
+  card. The kernel takes C % 4 == 0 (a float4 must not straddle two rows);
+  the wrapper raises on the rest.
 
 `stochastic_quantize` launches the kernel for CUDA tensors and takes the
 plain version for CPU tensors (see `registry`).
@@ -24,6 +31,9 @@ plain version for CPU tensors (see `registry`).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import struct
 from typing import Sequence, Tuple
 
 import torch
@@ -31,12 +41,23 @@ import torch
 from . import build
 from .registry import LAUNCHES, use_kernel
 
-__all__ = ["stochastic_quantize", "column_scales", "philox4x32_10"]
+__all__ = ["stochastic_quantize", "column_scales", "philox4x32_10", "quantize_geometry",
+           "QuantizeGeometry"]
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_MAX_ROWS = 65535 * 256  # grid rows of the absmax pass x rows per block
+
+# The kernel's constants (csrc/quantize.cu): 512 threads a CTA, each owning
+# one float4 column group of a strip of 32 or 16 columns (a 128- or 64-byte
+# piece of a row), so that a CTA covers THREADS // (strip // 4) rows per
+# step; a CTA holds at most TILE_BYTES of its rows in shared memory and
+# streams the rest; clusters of at most 8 CTAs (the portable limit).
+THREADS = 512
+STRIPS = (32, 16)
+TILE_BYTES = 28 * THREADS * 16
+MAX_CLUSTER = 8
+_MAX_STRIPS = 65535  # strips are the grid's y dimension
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,14 +112,129 @@ def _quantize_stochastic_reference(x2d: torch.Tensor, seed: int):
     return values, scales
 
 
-def _load_kernel() -> ctypes.CDLL:
-    lib = build.load("quantize")
-    fn = lib.fidm_quantize_int8
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-            ctypes.c_uint32, ctypes.c_void_p]
+@dataclasses.dataclass(frozen=True)
+class QuantizeGeometry:
+    """The kernel's launch for one [N, C] matrix: C is cut into `strips`
+    strips of `strip` columns, one cluster of `cluster` CTAs each; CTA k of
+    a cluster takes rows [k * rows_per_cta, (k + 1) * rows_per_cta) of its
+    strip, holds the first `hold_rows` of them in `smem_bytes` of dynamic
+    shared memory and streams the rest."""
+    strip: int
+    strips: int
+    cluster: int
+    rows_per_cta: int
+    hold_rows: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.strips * self.cluster
+
+    @property
+    def row_step(self) -> int:
+        """Rows a CTA's threads cover in one step."""
+        return THREADS // (self.strip // 4)
+
+
+def _make_geometry(n: int, c: int, strip: int, cluster: int, tile_bytes: int):
+    rows = -(-n // cluster)
+    hold = min(rows, tile_bytes // (strip * 4))
+    return QuantizeGeometry(strip, -(-c // strip), cluster, rows, hold, hold * strip * 4)
+
+
+def quantize_geometry(n: int, c: int, smem_per_block: int, static_smem: int,
+                      max_clusters: Sequence[int]) -> QuantizeGeometry:
+    """The launch for an [n, c] matrix on a card whose blocks may take
+    `smem_per_block` bytes of shared memory (`static_smem` of them the
+    kernel's own) and which holds `max_clusters[k - 1]` clusters of k CTAs
+    at once (cudaOccupancyMaxActiveClusters; the kernel runs one CTA per SM).
+
+    Among the strip widths and cluster sizes whose clusters all run at once,
+    it takes the one with the fewest steps a thread makes over its rows (the
+    arithmetic sets the time once the card is full), then the widest strip
+    (the longest pieces of a row read together), then the smallest cluster.
+    Where nothing runs in one wave (more than `max_clusters[0]` strips of 16
+    columns), 32-column strips of one CTA each run in waves."""
+    tile = min(TILE_BYTES, smem_per_block - static_smem)
+    combos = [_make_geometry(n, c, strip, k, tile) for strip in STRIPS
+              for k in range(1, MAX_CLUSTER + 1) if -(-c // strip) <= max_clusters[k - 1]]
+    if not combos:
+        return _make_geometry(n, c, STRIPS[0], 1, tile)
+    return min(combos, key=lambda g: (-(-g.rows_per_cta // g.row_step), -g.strip, g.cluster))
+
+
+# The launch's 10 integers (the `Launch` struct in csrc/quantize.cu) go in one
+# int64 buffer: ctypes converts each argument anew on every call.
+_PARAMS = struct.Struct("=10q")
+_fn = None  # the kernel's C entry point, resolved at first use
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("quantize").fidm_quantize_int8
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+        _fn = fn
+    return _fn
+
+
+@functools.lru_cache(maxsize=None)
+def _card(device: int) -> Tuple[int, int, Tuple[int, ...]]:
+    """(shared memory a block may opt into, the kernel's static shared
+    memory, how many clusters of 1 .. MAX_CLUSTER CTAs fit at once) of CUDA
+    device `device`. One CTA of the kernel fills an SM's registers, so the
+    cluster counts do not depend on the shared memory it takes."""
+    lib = build.load("quantize")
+    limits = (ctypes.c_int * 2)()
+    counts = []
+    with torch.cuda.device(device):
+        err = lib.fidm_quantize_device_limits(device, limits)
+        rows = TILE_BYTES // (STRIPS[0] * 4)
+        for k in range(1, MAX_CLUSTER + 1):
+            if err == 0:
+                out = ctypes.c_int(0)
+                err = lib.fidm_quantize_max_active_clusters(
+                    _PARAMS.pack(0, 0, 0, k * rows, STRIPS[0], 0, STRIPS[0], k, rows, rows),
+                    ctypes.byref(out))
+                counts.append(out.value)
+    if err != 0:
+        raise RuntimeError(f"quantize kernel: device query failed: cudaError {err}")
+    return limits[0], limits[1], tuple(counts)
+
+
+@functools.lru_cache(maxsize=1024)
+def _geometry(n: int, c: int, device: int) -> QuantizeGeometry:
+    return quantize_geometry(n, c, *_card(device))
+
+
+def max_active_clusters(cluster: int, device: int) -> int:
+    """How many clusters of `cluster` CTAs of the kernel device `device`
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    return _card(device)[2][cluster - 1]
+
+
+def _launch(x2d: torch.Tensor, seed: int, geo: QuantizeGeometry):
+    """Enqueue the kernel on the current stream for a checked, aligned
+    matrix with launch `geo` (the kernel checks it too and returns a
+    cudaError if it does not cover the matrix)."""
+    n, c = x2d.shape
+    device = x2d.get_device()
+    values = torch.empty((n, c), dtype=torch.int8, device=x2d.device)
+    scales = torch.empty((1, c), dtype=torch.float32, device=x2d.device)
+    params = _PARAMS.pack(x2d.data_ptr(), values.data_ptr(), scales.data_ptr(), n, c,
+                          seed & _MASK32, geo.strip, geo.cluster, geo.rows_per_cta,
+                          geo.hold_rows)
+    fn = _kernel()
+    if device == torch.cuda.current_device():
+        err = fn(params, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(params, torch._C._cuda_getCurrentRawStream(device))
+    if err != 0:
+        raise RuntimeError(f"quantize kernel launch failed: cudaError {err}")
+    LAUNCHES["quantize"] += 1
+    return values, scales
 
 
 def _quantize_cuda(x2d: torch.Tensor, seed: int):
@@ -109,24 +245,14 @@ def _quantize_cuda(x2d: torch.Tensor, seed: int):
         raise TypeError(f"the quantize kernel takes a float32 [N, C] matrix, got "
                         f"{x2d.dtype} {tuple(x2d.shape)}")
     n, c = x2d.shape
-    if not (1 <= n <= _MAX_ROWS and c >= 1):
-        raise ValueError(f"the quantize kernel takes 1 <= N <= {_MAX_ROWS} and C >= 1, "
-                         f"got {tuple(x2d.shape)}")
+    if not (n >= 1 and 4 <= c <= _MAX_STRIPS * STRIPS[-1] and c % 4 == 0):
+        raise ValueError(f"the quantize kernel takes N >= 1 and C a multiple of 4 up to "
+                         f"{_MAX_STRIPS * STRIPS[-1]}, got {tuple(x2d.shape)}")
     if not x2d.is_contiguous():
         raise ValueError("the quantize kernel takes a contiguous matrix")
     if x2d.data_ptr() % 16:
         x2d = x2d.clone()  # a fresh allocation is aligned for 16-byte loads
-    fn = _load_kernel().fidm_quantize_int8
-    values = torch.empty((n, c), dtype=torch.int8, device=x2d.device)
-    scales = torch.empty((1, c), dtype=torch.float32, device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x2d.data_ptr(), values.data_ptr(), scales.data_ptr(), n, c,
-                 seed & 0xFFFFFFFF, stream)
-    if err != 0:
-        raise RuntimeError(f"quantize kernel launch failed: cudaError {err}")
-    LAUNCHES["quantize"] += 1
-    return values, scales
+    return _launch(x2d, seed, _geometry(n, c, x2d.get_device()))
 
 
 def stochastic_quantize(x2d: torch.Tensor, seed: int):

@@ -190,11 +190,14 @@ def _weights(shape, seed, device):
     return torch.from_numpy((0.05 * rng.standard_normal(shape)).astype(np.float32)).to(device)
 
 
-# tile-aligned shapes of the FFHQ-256 UNet and ragged ones the kernel takes
-# too; tolerance 0: kernel and plain version draw the same Philox bits and
-# divide in IEEE float32
-@pytest.mark.parametrize("n,c", [(4608, 512), (512, 1536), (1152, 128), (100, 200),
-                                 (1, 1), (3, 5), (257, 33)])
+# tile-aligned shapes of the FFHQ-256 UNet, a tall one beyond what a cluster
+# holds in shared memory (its CTAs stream part of their rows), the geometry's
+# edges (N=8, N=1, N not a multiple of the rows a CTA covers in one step) and
+# ragged ones the kernel takes too; tolerance 0: kernel and plain version
+# draw the same Philox bits and divide in IEEE float32
+@pytest.mark.parametrize("n,c", [(9216, 512), (4608, 512), (512, 1536), (1152, 128),
+                                 (100, 200), (32768, 256), (8, 128), (1, 128), (1000, 128),
+                                 (1, 4), (3, 8), (257, 36)])
 @pytest.mark.parametrize("seed", [1, 2 ** 32 - 1])
 def test_quantize_kernel_matches_plain_bit_for_bit(cuda, n, c, seed):
     x = _weights((n, c), n + c, cuda)
@@ -229,6 +232,38 @@ def test_quantize_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         port_quantize._quantize_cuda(x.t(), 0)
     with pytest.raises(ValueError):
         port_quantize._quantize_cuda(x[:0], 0)
+
+
+# geometries the wrapper does not pick at these shapes: every strip width and
+# cluster size, CTAs that stream most of their rows (room for `tile_rows`
+# rows), CTAs left without rows, ragged last strips
+@pytest.mark.parametrize("n,c,strip,cluster,tile_rows", [
+    (1000, 128, 32, 1, 64), (1000, 128, 16, 2, 128), (1000, 96, 16, 4, 256),
+    (4608, 512, 32, 8, 64), (300, 256, 16, 8, 64), (9, 128, 16, 8, 64),
+    (5000, 64, 32, 4, 1152), (3000, 40, 16, 3, 1024), (20000, 64, 32, 2, 1600),
+    (4608, 512, 32, 5, 640), (1000, 200, 32, 3, 128), (70, 32, 16, 7, 64)])
+def test_quantize_kernel_geometries_match_plain(cuda, n, c, strip, cluster, tile_rows):
+    x = _weights((n, c), n * c, cuda)
+    geo = port_quantize._make_geometry(n, c, strip, cluster, tile_rows * strip * 4)
+    assert port_quantize.max_active_clusters(cluster, x.get_device()) >= 1
+    values, scales = port_quantize._launch(x, 5, geo)
+    ref_values, ref_scales = port_quantize._quantize_stochastic_reference(x, 5)
+    assert torch.equal(scales, ref_scales)
+    assert torch.equal(values, ref_values)
+    bad = dataclasses.replace(geo, rows_per_cta=(n - 1) // cluster)  # misses the last row
+    with pytest.raises(RuntimeError, match="cudaError"):
+        port_quantize._launch(x, 5, bad)
+
+
+@pytest.mark.parametrize("n,c", [(1, 1), (3, 5), (257, 33), (16, 130)])
+def test_quantize_wrapper_refuses_c_not_a_multiple_of_4(cuda, n, c):
+    """A float4 of the kernel must not straddle two rows; the dispatch
+    (C % 128 == 0) never sends such a matrix."""
+    x = _weights((n, c), 12, cuda)
+    before = LAUNCHES["quantize"]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        port_quantize._quantize_cuda(x, 0)
+    assert LAUNCHES["quantize"] == before
 
 
 def test_quantize_tensor_dispatch_on_the_card(cuda):
