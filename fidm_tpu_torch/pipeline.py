@@ -2,12 +2,13 @@
 
 Counterpart of `fidm_tpu/pipeline.py`: the canonical FFHQ-256 inpainting UNet
 on the 1000-step quadratic schedule, sampled with the `ddim-100` preset
-(eta 0.9, post-step known-region injection, final blend) by default.
+(eta 0.9, post-step known-region injection, final blend) by default. The
+server (`serving/`, `cli/serve.py`) serves `dpm-25-sde` by default.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -24,8 +25,9 @@ __all__ = [
     "create_model_and_schedule",
 ]
 
-# The JAX package's presets under the same names. Only method="ddim" without
-# feature caching is ported; the others raise NotImplementedError when used.
+# The JAX package's presets under the same names. The ported ones are
+# method "ddim", "dpm++2m" and "dpm++2m-sde" without feature caching (any
+# strength); the others raise NotImplementedError when used.
 SAMPLER_PRESETS = {
     "ddpm-1000": SamplerConfig(method="ddpm", num_steps=None, injection=True),
     "ddpm-250": SamplerConfig(method="ddpm", num_steps=250, injection=True),
@@ -48,8 +50,10 @@ SAMPLER_PRESETS = {
     "ddim-20-fast": SamplerConfig(method="ddim", num_steps=20, eta=0.9,
                                   injection=True, encoder_cache_period=2,
                                   cache_branch=1, encoder_cache_tail=4),
+    # DPM-Solver++(2M), ported
     "dpm-25": SamplerConfig(method="dpm++2m", num_steps=25, injection=True),
     "dpm-20": SamplerConfig(method="dpm++2m", num_steps=20, injection=True),
+    # its SDE variant, ported: the server's default (26 model evaluations)
     "dpm-25-sde": SamplerConfig(method="dpm++2m-sde", num_steps=25,
                                 injection=True),
     "dpm-20-fast": SamplerConfig(method="dpm++2m", num_steps=20,
@@ -131,15 +135,25 @@ class InpaintingPipeline:
             t = t.float() * (1000.0 / self.config.num_timesteps)
         return self.model(x, t, masked_image, mask)
 
-    def inpaint(self, gt, mask, seed: int, sampler: Optional[SamplerConfig] = None,
-                *, noise=None):
+    def inpaint(self, gt, mask, seed: Union[int, Sequence[int]],
+                sampler: Optional[SamplerConfig] = None, *,
+                strength: Optional[float] = None, noise=None):
         """Inpaint a batch: gt [B,H,W,3] in [-1,1], mask [B,H,W,1] (1 = hole),
         as numpy arrays or tensors. Returns a [B,H,W,3] tensor on the
         pipeline's device (float32, or uint8 per the sampler's output_dtype).
 
-        The noise comes from `GeneratorNoise(seed)`; `noise` replaces it with
-        any source of the same three draws (see `inpaint_sample`)."""
+        The noise comes from `GeneratorNoise(seed)`: `seed` is one int for the
+        whole batch, or B ints, one per row (row i then equals the batch-1 run
+        with seed i). `noise` replaces it with any source of the same three
+        draws (see `inpaint_sample`).
+
+        `strength` < 1 overrides the preset's and switches to refinement
+        (SDEdit): only the last round(strength * K) steps run, starting from
+        `gt` noised to that level, so gt's hole must carry the content to
+        harmonize."""
         cfg = sampler or self.config.sampler
+        if strength is not None:
+            cfg = dataclasses.replace(cfg, strength=strength)
         gt = torch.as_tensor(gt, dtype=torch.float32, device=self.device)
         mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
         if gt.ndim != 4 or gt.shape[-1] != 3:

@@ -1,26 +1,29 @@
-"""DDIM inpainting sampler (PyTorch port).
+"""DDIM and DPM-Solver++(2M) inpainting samplers (PyTorch port).
 
-Counterpart of the DDIM branch of `fidm_tpu/sampling/sampler.py`: the same
-float64 host coefficient tables, copied once to the device as float32, then a
-Python loop over the steps. The loop reads per-step coefficients as device
-scalars and decides on the host which draws a step needs (from the host
-tables), so it never waits on the device.
+Counterpart of the DDIM and `dpm++2m` / `dpm++2m-sde` branches of
+`fidm_tpu/sampling/sampler.py`: the same float64 host coefficient tables,
+copied once to the device as float32, then a Python loop over the steps. The
+loop reads per-step coefficients as device scalars and decides on the host
+which draws a step needs (from the host tables), so it never waits on the
+device. `strength` < 1 (refinement) starts from the clean image noised to the
+truncated grid's first timestep.
 
 Noise contract. Three draws, as in the JAX sampler: the initial state, one
 draw per step index, and the injection noise keyed by the TARGET timestep of
 the injection (so the same seed and timestep give the same noise, the
-reference's ground-truth noise cache). `GeneratorNoise` makes them from a
-`torch.Generator` seeded from the caller's integer seed; tests pass any
-object with the same three methods.
+reference's ground-truth noise cache). `GeneratorNoise` makes them from
+`torch.Generator`s seeded from the caller's integer seed, or from one seed
+per batch row (the serving determinism contract: row i equals the batch-1
+run with seed i); tests pass any object with the same three methods.
 
-Only method="ddim" without feature caching, refinement (strength < 1),
-trajectories or guidance is ported; everything else raises
-NotImplementedError.
+Feature caching, trajectories, guidance and the other methods are not ported
+and raise NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -140,12 +143,59 @@ def _ddim_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.n
     }
 
 
+def _dpm_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """Per-step float64 tables for DPM-Solver++(2M) and its SDE variant
+    (Lu et al. 2022, arXiv:2211.01095), the JAX package's numpy code.
+
+    With lambda = log(alpha/sigma) and h_i = lambda_prev - lambda_cur:
+        D_hat_i = (1 + c_i) * D_i - c_i * D_{i-1},   c_i = h_i / (2 h_{i-1})
+        x_prev  = (sigma_prev/sigma_cur) * x + alpha_prev*(1 - e^{-h_i}) * D_hat_i
+    c_0 = 0 (the first step is first order) and the final step to
+    alpha_bar_prev = 1 is first order too, collapsing x to the x0
+    prediction. The SDE variant contracts the linear term by e^{-2h} and adds
+    fresh noise of matching variance (`sde_noise`, 0 at the final step).
+    `eta` is ignored; the injection tables are the DDIM loop's.
+    """
+    base = _ddim_tables(sched, dataclasses.replace(cfg, eta=0.0))
+    a_t = base["sqrt_a_t"].astype(np.float64) ** 2
+    a_prev = base["sqrt_a_prev"].astype(np.float64) ** 2
+    alpha_t, sigma_t = np.sqrt(a_t), np.sqrt(1.0 - a_t)
+    alpha_p, sigma_p = np.sqrt(a_prev), np.sqrt(1.0 - a_prev)
+    with np.errstate(divide="ignore"):
+        lam_t = 0.5 * (np.log(a_t) - np.log1p(-a_t))
+        lam_p = 0.5 * (np.log(a_prev) - np.log1p(-a_prev))  # +inf at a_prev=1
+    h = lam_p - lam_t
+    h_prev = np.concatenate([[np.inf], h[:-1]])  # i=0: c -> 0 (first-order)
+    corr = np.where(np.isfinite(h), h / (2.0 * h_prev), 0.0)
+    base["corr"] = corr
+    base["coef_x"] = sigma_p / sigma_t
+    # alpha_p * (1 - exp(-h)) in a form finite at h = inf
+    base["coef_D"] = alpha_p - sigma_p * alpha_t / sigma_t
+    if cfg.method == "dpm++2m-sde":
+        # x_prev = (sigma_p/sigma_t) e^{-h} x + alpha_p (1-e^{-2h}) D_hat
+        #          + sigma_p sqrt(1-e^{-2h}) z, with exp(-h) =
+        # (sigma_p alpha_t)/(sigma_t alpha_p), 0 at the final step
+        exp_mh = np.where(
+            a_prev < 1.0, (sigma_p / sigma_t) * (alpha_t / np.maximum(alpha_p, 1e-30)), 0.0
+        )
+        base["coef_x"] = (sigma_p / sigma_t) * exp_mh
+        base["coef_D"] = alpha_p * (1.0 - exp_mh**2)
+        base["sde_noise"] = sigma_p * np.sqrt(1.0 - exp_mh**2)
+    for unused in ("dir_coef", "sigma", "noise_gate", "sqrt_a_prev"):
+        del base[unused]
+    return base
+
+
 def _to_device_xs(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {
-        k: torch.as_tensor(v.astype(np.int32 if v.dtype.kind == "i" else np.float32),
-                           device=device)
-        for k, v in tables.items()
-    }
+    """The tables as int32 / float32 tensors on `device`. To CUDA by pinned,
+    non-blocking copies: a blocking copy would wait for every kernel already
+    queued (the server's batch in flight)."""
+    xs = {}
+    for k, v in tables.items():
+        t = torch.from_numpy(v.astype(np.int32 if v.dtype.kind == "i" else np.float32))
+        xs[k] = (t.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
+                 else t.to(device))
+    return xs
 
 
 def _x0_eps_from_raw(raw, x, s, cfg: SamplerConfig):
@@ -191,27 +241,57 @@ def _finalize_output(x, cfg: SamplerConfig):
     raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {cfg.output_dtype!r}")
 
 
+def _check_seed(seed) -> int:
+    if not isinstance(seed, (int, np.integer)) or isinstance(seed, bool) or seed < 0:
+        raise ValueError(f"seed must be a non-negative integer, got {seed!r}")
+    return int(seed)
+
+
 class GeneratorNoise:
-    """The sampler's three noise draws from one integer seed.
+    """The sampler's three noise draws from one integer seed, or from one
+    seed per batch row.
 
     Each draw seeds its own `torch.Generator` on `device` from
     (seed, stream, index): stream 0 is the initial state, 1 the per-step
     noise by step index, 2 the injection noise by timestep. The same seed
     and index give the same tensor in any order of calls.
+
+    With a sequence of B seeds, row i of every [B, ...] draw comes from seed
+    i alone, into its slice of one tensor, so it is bit-equal to the batch-1
+    draw of `GeneratorNoise(seeds[i])` whatever else shares the batch (the
+    port's counterpart of the JAX sampler's per-sample keys). A draw whose
+    batch is not B raises ValueError.
     """
 
-    def __init__(self, seed: int, device):
-        if not isinstance(seed, (int, np.integer)) or seed < 0:
-            raise ValueError(f"seed must be a non-negative integer, got {seed!r}")
-        self.seed = int(seed)
+    def __init__(self, seed: Union[int, Sequence[int]], device):
+        if isinstance(seed, (int, np.integer)):
+            self.seed, self.seeds = _check_seed(seed), None
+        else:
+            self.seed, self.seeds = None, tuple(_check_seed(s) for s in seed)
+            if not self.seeds:
+                raise ValueError("seed sequence must not be empty")
         self.device = torch.device(device)
 
-    def _draw(self, stream: int, index: int, shape) -> torch.Tensor:
-        state = np.random.SeedSequence([self.seed, stream, int(index)])
+    def _generator(self, seed: int, stream: int, index: int) -> torch.Generator:
+        state = np.random.SeedSequence([seed, stream, int(index)])
         g = torch.Generator(device=self.device)
         g.manual_seed(int(state.generate_state(1, np.uint64)[0]))
-        return torch.randn(tuple(shape), generator=g, device=self.device,
-                           dtype=torch.float32)
+        return g
+
+    def _draw(self, stream: int, index: int, shape) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.seeds is None:
+            return torch.randn(shape, generator=self._generator(self.seed, stream, index),
+                               device=self.device, dtype=torch.float32)
+        if shape[0] != len(self.seeds):
+            raise ValueError(
+                f"per-row seed batch {len(self.seeds)} != input batch {shape[0]} "
+                "(pass one seed per row, or a single seed)")
+        out = torch.empty(shape, device=self.device, dtype=torch.float32)
+        for row, seed in zip(out, self.seeds):
+            torch.randn(shape[1:], generator=self._generator(seed, stream, index),
+                        out=row)
+        return out
 
     def init(self, shape) -> torch.Tensor:
         return self._draw(0, 0, shape)
@@ -223,19 +303,38 @@ class GeneratorNoise:
         return self._draw(2, timestep, shape)
 
 
+_PORTED_METHODS = ("ddim", "dpm++2m", "dpm++2m-sde")
+
+
 def _check_ported(cfg: SamplerConfig, cond_fn):
-    if cfg.method != "ddim":
+    if cond_fn is not None and cfg.method in ("dpm++2m", "dpm++2m-sde"):
+        raise ValueError(
+            "classifier guidance (cond_fn) is defined for ddim/ddpm/repaint; "
+            "the DPM-Solver++ updates have no reference-guided form")
+    if cfg.method not in _PORTED_METHODS:
         raise NotImplementedError(f"sampler method {cfg.method!r} is not ported yet")
     if cfg.encoder_cache_period > 1 or cfg.cache_keysteps is not None or cfg.cache_branch:
         raise NotImplementedError("feature caching is not ported yet")
-    if cfg.strength != 1.0:
-        raise NotImplementedError("refinement (strength < 1) is not ported yet")
     if cfg.trajectory_every:
         raise NotImplementedError("trajectory_every is not ported yet")
     if cond_fn is not None:
         raise NotImplementedError("classifier guidance (cond_fn) is not ported yet")
     if cfg.injection_point not in ("post", "pre"):
         raise ValueError(f"unknown injection_point: {cfg.injection_point}")
+
+
+def _initial_state(sched: DiffusionSchedule, cfg: SamplerConfig, first_t: int,
+                   gt: torch.Tensor, x_init: Optional[torch.Tensor], noise) -> torch.Tensor:
+    """The loop's starting state. With strength < 1 the clean image (x_init,
+    else gt) q-sampled to the truncated grid's first timestep (SDEdit);
+    otherwise x_init, else a standard normal draw."""
+    if cfg.strength < 1.0:
+        clean = x_init if x_init is not None else gt
+        a0 = float(host_alphas_cumprod(sched)[first_t])
+        return (math.sqrt(a0) * clean.to(torch.float32)
+                + math.sqrt(1.0 - a0) * noise.init(gt.shape))
+    x = x_init if x_init is not None else noise.init(gt.shape)
+    return x.to(torch.float32)
 
 
 def inpaint_sample(
@@ -246,9 +345,10 @@ def inpaint_sample(
     gt: torch.Tensor,
     mask: torch.Tensor,
     noise,
+    x_init: Optional[torch.Tensor] = None,
     cond_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """Run the DDIM inpainting reverse process.
+    """Run the DDIM or DPM-Solver++(2M) inpainting reverse process.
 
     Args:
       apply_fn: (x, t[B], masked_image, mask) -> model output (NHWC, f32).
@@ -256,6 +356,8 @@ def inpaint_sample(
       mask: [B,H,W,1], 1 = inpaint (hole), 0 = keep.
       noise: the noise source (`GeneratorNoise` or any object with its
         `init(shape)`, `step(index, shape)` and `inject(timestep, shape)`).
+      x_init: optional starting state (default N(0, 1)); with cfg.strength
+        < 1 it is instead the CLEAN image to refine (default gt).
 
     Returns:
       Inpainted images [B,H,W,3]; with cfg.final_blend the known pixels are
@@ -265,12 +367,16 @@ def inpaint_sample(
     B = gt.shape[0]
     keep = (1.0 - mask).to(gt.dtype)
     masked_image = gt * keep
-    tables = _ddim_tables(sched, cfg)
+    ddim = cfg.method == "ddim"
+    tables = _ddim_tables(sched, cfg) if ddim else _dpm_tables(sched, cfg)
     xs = _to_device_xs(tables, gt.device)
     pre = cfg.injection and cfg.injection_point == "pre"
     post = cfg.injection and cfg.injection_point == "post"
 
-    x = noise.init(gt.shape).to(torch.float32)
+    x = _initial_state(sched, cfg, int(tables["t"][0]), gt, x_init, noise)
+    # dpm: the previous x0 prediction, read only where corr > 0 (never at
+    # step 0)
+    prev_x0 = None if ddim else torch.zeros_like(x)
     for i in range(len(tables["t"])):
         s = {k: v[i] for k, v in xs.items()}
         # a step whose host gate is 0 adds exactly nothing; skip its draw
@@ -278,15 +384,24 @@ def inpaint_sample(
             x = _maybe_pre_inject(x, s, gt, keep,
                                   noise.inject(int(tables["t"][i]), gt.shape))
         out = apply_fn(x, s["t"].expand(B), masked_image, mask)
-        raw = out[..., :3]  # learned variance is unused by DDIM
+        raw = out[..., :3]  # learned variance is unused by DDIM and DPM-Solver
         pred_x0, eps = _x0_eps_from_raw(raw, x, s, cfg)
-        if cfg.clip_denoised:
-            pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
-            if cfg.mean_type != gd.ModelMeanType.EPSILON:
-                eps = (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
-        x = s["sqrt_a_prev"] * pred_x0 + s["dir_coef"] * eps
-        if tables["noise_gate"][i] > 0:
-            x = x + s["noise_gate"] * s["sigma"] * noise.step(i, x.shape)
+        if ddim:
+            if cfg.clip_denoised:
+                pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
+                if cfg.mean_type != gd.ModelMeanType.EPSILON:
+                    eps = (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
+            x = s["sqrt_a_prev"] * pred_x0 + s["dir_coef"] * eps
+            if tables["noise_gate"][i] > 0:
+                x = x + s["noise_gate"] * s["sigma"] * noise.step(i, x.shape)
+        else:
+            if cfg.clip_denoised:
+                pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
+            d_hat = (1.0 + s["corr"]) * pred_x0 - s["corr"] * prev_x0
+            x = s["coef_x"] * x + s["coef_D"] * d_hat
+            if "sde_noise" in tables and tables["sde_noise"][i] > 0:
+                x = x + s["sde_noise"] * noise.step(i, x.shape)
+            prev_x0 = pred_x0
         if post and tables["inject_gate"][i] > 0:
             x = _maybe_post_inject(x, s, gt, keep,
                                    noise.inject(int(tables["inject_t"][i]), gt.shape))

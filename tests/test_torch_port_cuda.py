@@ -19,7 +19,9 @@ from fidm_tpu_torch.ops import LAUNCHES, kernel_override, qkv_attention
 from fidm_tpu_torch.ops import attention as port_attention
 from fidm_tpu_torch.ops import quantize as port_quantize
 from fidm_tpu_torch.quant import quantize_tensor
-from fidm_tpu_torch.sampling import SamplerConfig
+from fidm_tpu_torch.sampling import GeneratorNoise, SamplerConfig
+from fidm_tpu_torch.sampling.sampler import _dpm_tables
+from fidm_tpu_torch.serving import InpaintingServer
 
 pytestmark = pytest.mark.cuda
 
@@ -183,6 +185,49 @@ def test_small_pipeline_runs_through_the_kernel(cuda):
     uint8 = pipe.inpaint(gt, mask, 0, sampler=dataclasses.replace(cfg.sampler,
                                                                   output_dtype="uint8"))
     assert uint8.dtype == torch.uint8 and uint8.is_cuda
+
+
+@pytest.mark.parametrize("stream", ["init", "step", "inject"])
+def test_per_row_seed_draws_on_the_card(cuda, stream):
+    """Row i of a draw with per-row seeds is bit-equal to the batch-1 draw of
+    seed i on the card too."""
+    seeds, shape = [3, 99, 2**32 - 1, 7], (4, 64, 64, 3)
+    draw = lambda noise, s: noise.init(s) if stream == "init" else getattr(noise, stream)(17, s)
+    rows = draw(GeneratorNoise(seeds, cuda), shape)
+    for i, seed in enumerate(seeds):
+        assert torch.equal(rows[i:i + 1], draw(GeneratorNoise(seed, cuda), (1,) + shape[1:]))
+
+
+def test_small_server_on_the_card(cuda):
+    """The dispatcher on a small CUDA pipeline with DPM-Solver++(2M) SDE:
+    one batch of three, the kernel launched per attention block and step, known
+    pixels kept, and a replay alone bit-equal to the pipeline at batch 1."""
+    sampler = SamplerConfig(method="dpm++2m-sde", num_steps=6, injection=True)
+    cfg = PipelineConfig(
+        unet=UNetConfig(image_size=32, model_channels=64, channel_mult=(1, 2),
+                        attention_resolutions=(2,), num_head_channels=64), sampler=sampler)
+    pipe = InpaintingPipeline.create(cfg, seed=0, device="cuda")
+    n_attn = sum(isinstance(m, AttentionBlock) for m in pipe.model.modules())
+    n_steps = len(_dpm_tables(pipe.sched, sampler)["t"])  # 8: the 6-step grid's
+    rng = np.random.default_rng(1)
+    images = rng.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
+    mask = np.zeros((32, 32, 1), np.float32)
+    mask[8:24, 8:24] = 1.0
+    server = InpaintingServer(pipe, batch_size=4, max_wait_ms=300, adaptive_wait=False)
+    try:
+        before = LAUNCHES["attention"]
+        futs = [server.submit(im, mask, seed=10 + i) for i, im in enumerate(images)]
+        outs = [f.result(timeout=120) for f in futs]
+        assert server.stats_snapshot()["batches_by_size"][4] == 1
+        assert LAUNCHES["attention"] - before == n_attn * n_steps
+        alone = server.submit(images[1], mask, seed=11).result(timeout=120)
+    finally:
+        server.close()
+    keep = mask[..., 0] < 0.5
+    for im, out in zip(images, outs):
+        assert np.isfinite(out).all() and np.array_equal(out[keep], im[keep])
+    ref = pipe.inpaint(images[1:2], mask[None], [11]).cpu().numpy()[0]
+    assert np.array_equal(alone, ref)
 
 
 def _weights(shape, seed, device):

@@ -126,7 +126,7 @@ def test_default_config_is_ddim100_on_ffhq256():
     assert (cfg.schedule, cfg.num_timesteps) == ("quadratic", 1000)
 
 
-@pytest.mark.parametrize("name", ["dpm-25-sde", "ddim-100-deep", "repaint-100-light"])
+@pytest.mark.parametrize("name", ["unipc-20", "ddim-100-deep", "repaint-100-light"])
 def test_unported_presets_raise(pipe, name):
     gt, mask = _inputs(0)
     with pytest.raises(NotImplementedError):
@@ -173,7 +173,8 @@ def test_package_imports_no_jax():
         "for name in names: importlib.import_module(name)\n"
         "assert {'fidm_tpu_torch.quant.int8', 'fidm_tpu_torch.quant.calibrate', "
         "'fidm_tpu_torch.ops.quantize', 'fidm_tpu_torch.data.dataset', "
-        "'fidm_tpu_torch.cli.quantize'} <= set(names), names\n"
+        "'fidm_tpu_torch.cli.quantize', 'fidm_tpu_torch.serving.server', "
+        "'fidm_tpu_torch.cli.serve'} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fidm_tpu'))\n"
         "print(bad)\n"

@@ -184,8 +184,8 @@ def test_uint8_output_is_clamp_then_truncate():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="ddpm"), dict(method="dpm++2m-sde"), dict(encoder_cache_period=3),
-    dict(strength=0.5), dict(trajectory_every=2),
+    dict(method="ddpm"), dict(method="dpm++3m"), dict(encoder_cache_period=3),
+    dict(method="unipc"), dict(trajectory_every=2),
 ])
 def test_unported_options_raise(kw):
     gt, mask = (torch.from_numpy(a) for a in _inputs(1))
