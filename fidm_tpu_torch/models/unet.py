@@ -123,14 +123,40 @@ class UNet(nn.Module):
             h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
         return h
 
-    def forward(self, x, timesteps, y=None):
-        """x: [B, H, W, C] NHWC; timesteps: [B]. Returns [B, H, W, out] float32."""
+    def forward(self, x, timesteps, y=None, *, cache=None, return_cache: bool = False,
+                cache_depth: Optional[int] = None):
+        """x: [B, H, W, C] NHWC; timesteps: [B]. Returns [B, H, W, out] float32,
+        or (output, cache) with `return_cache=True`.
+
+        Cross-step feature reuse, as the JAX `UNet`: `return_cache=True` makes
+        a key call publish its features and `cache=...` makes a call consume
+        them; the timestep embedding is always fresh.
+
+        - `cache_depth=None` (encoder reuse): the cache is `(h_mid, skips)`; a
+          cached call runs no input or middle block, only the decoder.
+        - `cache_depth=b` (DeepCache deep-trunk reuse): the cache is the
+          decoder feature entering level b-1. A cached call runs the input
+          blocks of levels 0..b-1 (the downsamples between them, not the one
+          that feeds level b) and the output blocks of levels b-1..0.
+
+        The cache is this port's own structure, NCHW tensors in the activation
+        dtype; callers pass it back as they got it. A cached call at the
+        key call's (x, t) runs the same kernels on the same tensors as the
+        plain forward, so it gives its output bit for bit.
+        """
         cfg = self.config
+        n_levels = len(cfg.channel_mult)
+        if cache_depth is not None and not 1 <= cache_depth < n_levels:
+            raise ValueError(
+                f"cache_depth must be in [1, {n_levels - 1}] for "
+                f"channel_mult={cfg.channel_mult}; got {cache_depth}")
         if (y is not None) != (cfg.num_classes is not None):
             raise ValueError(
                 f"labels and num_classes must come together: y is "
                 f"{'set' if y is not None else 'None'} but num_classes={cfg.num_classes}")
         dtype = cfg.dtype
+        per_level = cfg.num_res_blocks + 1
+        deep_cached = cache is not None and cache_depth is not None
 
         emb = timestep_embedding(timesteps, cfg.model_channels).to(dtype)
         emb = linear(self.time_embed[0], emb)
@@ -138,25 +164,45 @@ class UNet(nn.Module):
         if y is not None:
             emb = emb + self.label_emb(y).to(dtype)
 
-        h = conv(self.input_blocks[0][0], x.permute(0, 3, 1, 2).to(dtype))
-        hs = [h]
-        for block in self.input_blocks[1:]:
-            h = self._run(block, h, emb)
-            hs.append(h)
-        h = self._run(self.middle_block, h, emb)
-        for block in self.output_blocks:
-            h = self._run(block, torch.cat([h, hs.pop()], dim=1), emb)
+        if cache is None or deep_cached:
+            stop = cache_depth * per_level if deep_cached else len(self.input_blocks)
+            h = conv(self.input_blocks[0][0], x.permute(0, 3, 1, 2).to(dtype))
+            hs = [h]
+            for block in self.input_blocks[1:stop]:
+                h = self._run(block, h, emb)
+                hs.append(h)
+            if not deep_cached:
+                h = self._run(self.middle_block, h, emb)
+        else:
+            h_mid, skips = cache
+            # a new list: the decoder pops it, and the cache serves every
+            # cached step until the next key step
+            h, hs = h_mid.to(dtype), [s.to(dtype) for s in skips]
+
+        new_cache = (h, tuple(hs)) if return_cache and cache_depth is None else None
+        # the output block where the decoder enters level cache_depth - 1
+        branch = None if cache_depth is None else (n_levels - cache_depth) * per_level
+        start = 0
+        if deep_cached:
+            h, start = cache.to(dtype), branch
+        for i in range(start, len(self.output_blocks)):
+            if return_cache and i == branch:
+                new_cache = h
+            h = self._run(self.output_blocks[i], torch.cat([h, hs.pop()], dim=1), emb)
+        assert not hs
 
         h = F.silu(self.out[0](h))
-        h = conv(self.out[2], h.float())
-        return h.permute(0, 2, 3, 1)
+        h = conv(self.out[2], h.float()).permute(0, 2, 3, 1)
+        return (h, new_cache) if return_cache else h
 
 
 class InpaintingUNet(UNet):
     """Mask-aware 9-channel UNet: the input is [noisy(3) | masked(3) | mask x3]
     on the channel axis. Its state dict is the base UNet's, with ADM keys."""
 
-    def forward(self, x, t, masked_image, mask, y=None):
+    def forward(self, x, t, masked_image, mask, y=None, *, cache=None,
+                return_cache: bool = False, cache_depth: Optional[int] = None):
         mask3 = mask.expand(*mask.shape[:-1], 3)
         inp = torch.cat([x, masked_image.to(x.dtype), mask3.to(x.dtype)], dim=-1)
-        return super().forward(inp, t, y)
+        return super().forward(inp, t, y, cache=cache, return_cache=return_cache,
+                               cache_depth=cache_depth)

@@ -3,7 +3,9 @@
 Counterpart of `fidm_tpu/pipeline.py`: the canonical FFHQ-256 inpainting UNet
 on the 1000-step quadratic schedule, sampled with the `ddim-100` preset
 (eta 0.9, post-step known-region injection, final blend) by default. The
-server (`serving/`, `cli/serve.py`) serves `dpm-25-sde` by default.
+server (`serving/`, `cli/serve.py`) serves `dpm-25-sde` by default. Presets
+with feature caching (`ddim-100-deep` and the other `encoder_cache_period` >
+1 presets) get the model's (full, cached) call pair from `inpaint`.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ __all__ = [
 ]
 
 # The JAX package's presets under the same names. The ported ones are
-# method "ddim", "dpm++2m" and "dpm++2m-sde" without feature caching (any
-# strength); the others raise NotImplementedError when used.
+# method "ddim", "dpm++2m" and "dpm++2m-sde", with or without feature caching
+# (any strength); the others raise NotImplementedError when used.
 SAMPLER_PRESETS = {
     "ddpm-1000": SamplerConfig(method="ddpm", num_steps=None, injection=True),
     "ddpm-250": SamplerConfig(method="ddpm", num_steps=250, injection=True),
@@ -130,10 +132,50 @@ class InpaintingPipeline:
             config, checkpoint=checkpoint, seed=seed, device=device)
         return cls(model, sched, config)
 
-    def _apply(self, x, t, masked_image, mask):
+    def _apply(self, x, t, masked_image, mask, **cache_kw):
         if self.config.rescale_timesteps:
             t = t.float() * (1000.0 / self.config.num_timesteps)
-        return self.model(x, t, masked_image, mask)
+        return self.model(x, t, masked_image, mask, **cache_kw)
+
+    def _cache_apply(self, cfg: SamplerConfig):
+        """The sampler's (full_fn, cached_fn) pair for `cfg`, or None when it
+        runs no feature cache (period <= 1, or output reuse, which carries
+        the previous output and needs no cache-capable model). Branch 0 is
+        encoder mode."""
+        if cfg.encoder_cache_period <= 1 or cfg.cache_branch == -1:
+            return None
+        depth = cfg.cache_branch or None
+
+        def full_fn(x, t, masked_image, mask):
+            return self._apply(x, t, masked_image, mask, return_cache=True, cache_depth=depth)
+
+        def cached_fn(x, t, masked_image, mask, cache):
+            return self._apply(x, t, masked_image, mask, cache=cache, cache_depth=depth)
+
+        return full_fn, cached_fn
+
+    def _validate_cache_cfg(self, cfg: SamplerConfig):
+        """A cache option that would be silently ignored (period <= 1) or a
+        branch out of range raises here, before any step runs."""
+        if cfg.cache_keysteps is not None and cfg.encoder_cache_period <= 1:
+            raise ValueError(
+                f"cache_keysteps={cfg.cache_keysteps} has no effect with "
+                f"encoder_cache_period={cfg.encoder_cache_period}; set "
+                "encoder_cache_period > 1 (it enables caching; the explicit "
+                "grid then replaces the periodic gate)")
+        if cfg.cache_branch:
+            if cfg.encoder_cache_period <= 1:
+                raise ValueError(
+                    f"cache_branch={cfg.cache_branch} has no effect with "
+                    f"encoder_cache_period={cfg.encoder_cache_period}; set "
+                    "encoder_cache_period > 1 (or drop cache_branch)")
+            n_levels = len(self.config.unet.channel_mult)
+            if cfg.cache_branch != -1 and not 1 <= cfg.cache_branch < n_levels:
+                raise ValueError(
+                    f"cache_branch must be -1 (output reuse) or in "
+                    f"[1, {n_levels - 1}] for "
+                    f"channel_mult={self.config.unet.channel_mult}; got "
+                    f"{cfg.cache_branch}")
 
     def inpaint(self, gt, mask, seed: Union[int, Sequence[int]],
                 sampler: Optional[SamplerConfig] = None, *,
@@ -154,6 +196,7 @@ class InpaintingPipeline:
         cfg = sampler or self.config.sampler
         if strength is not None:
             cfg = dataclasses.replace(cfg, strength=strength)
+        self._validate_cache_cfg(cfg)
         gt = torch.as_tensor(gt, dtype=torch.float32, device=self.device)
         mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
         if gt.ndim != 4 or gt.shape[-1] != 3:
@@ -166,4 +209,4 @@ class InpaintingPipeline:
             noise = GeneratorNoise(seed, self.device)
         with torch.inference_mode():
             return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
-                                  noise=noise)
+                                  noise=noise, cache_apply=self._cache_apply(cfg))

@@ -16,8 +16,15 @@ reference's ground-truth noise cache). `GeneratorNoise` makes them from
 per batch row (the serving determinism contract: row i equals the batch-1
 run with seed i); tests pass any object with the same three methods.
 
-Feature caching, trajectories, guidance and the other methods are not ported
-and raise NotImplementedError.
+Feature caching (`encoder_cache_period` > 1): the key steps come from a host
+numpy mask over the grid (`_cache_keymask`), so choosing between the full and
+the cached model call is a Python `if` that never waits on the device. Key
+steps call `full_fn` and keep its cache, the other steps call `cached_fn`
+with it (`cache_apply`); with `cache_branch=-1` they reuse the previous raw
+model output and run no model.
+
+Trajectories, guidance and the other methods are not ported and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch
 from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule, timestep_sequence
 
-__all__ = ["SamplerConfig", "inpaint_sample", "host_alphas_cumprod", "GeneratorNoise"]
+__all__ = ["SamplerConfig", "inpaint_sample", "host_alphas_cumprod", "GeneratorNoise",
+           "nonuniform_keysteps", "keysteps_from_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +87,72 @@ def _injection_gate(ts: np.ndarray, schedule: str, T: int) -> np.ndarray:
     if schedule == "low":
         return (ts < half).astype(np.float64)
     raise ValueError(f"unknown injection_schedule: {schedule}")
+
+
+def _cache_keymask(cfg: SamplerConfig, K: int) -> np.ndarray:
+    """Host boolean mask over the K steps: True = run the full model.
+
+    The periodic gate (`step % period == 0`, or one of the last
+    `encoder_cache_tail` steps), or `cfg.cache_keysteps` as an explicit grid:
+    strictly ascending, in range, and holding step 0, which fills the cache
+    before any cached step reads it."""
+    if cfg.cache_keysteps is None:
+        steps = np.arange(K)
+        return (steps % cfg.encoder_cache_period == 0) | (
+            steps >= K - cfg.encoder_cache_tail)
+    ks = np.asarray(cfg.cache_keysteps, dtype=np.int64)
+    if ks.ndim != 1 or ks.size == 0 or (np.diff(ks) <= 0).any():
+        raise ValueError(
+            "cache_keysteps must be a non-empty strictly ascending tuple, "
+            f"got {cfg.cache_keysteps!r}")
+    if ks[0] != 0:
+        raise ValueError(
+            "cache_keysteps must include step 0: the feature cache is "
+            "zero-initialized and must be written before it is read")
+    if ks[-1] >= K:
+        raise ValueError(
+            f"cache_keysteps out of range: max index {int(ks[-1])} vs "
+            f"{K} steps in this grid")
+    mask = np.zeros(K, dtype=bool)
+    mask[ks] = True
+    return mask
+
+
+def nonuniform_keysteps(K: int, n_key: int, *, center: float = 0.5,
+                        power: float = 1.2) -> Tuple[int, ...]:
+    """A non-uniform full-evaluation grid for `SamplerConfig.cache_keysteps`
+    (DeepCache's non-uniform 1:N strategy, arXiv:2312.00858 §4.2): n_key
+    full evaluations with a power-law density around `center` (a fraction of
+    the chain, 0 = high noise, 1 = fine detail); power > 1 concentrates them
+    near the center. Step 0 is always included and rounding duplicates are
+    dropped, so the grid can be shorter than n_key."""
+    if not 1 <= n_key <= K:
+        raise ValueError(f"n_key must be in [1, {K}], got {n_key}")
+    if not 0.0 <= center <= 1.0:
+        raise ValueError(f"center must be in [0, 1], got {center}")
+    if power <= 0:
+        raise ValueError(f"power must be positive, got {power}")
+    u = np.linspace(-1.0, 1.0, n_key)
+    c = center * (K - 1)
+    radius = max(c, (K - 1) - c)
+    idx = np.round(c + np.sign(u) * np.abs(u) ** power * radius)
+    idx = np.clip(idx, 0, K - 1).astype(np.int64)
+    idx = np.unique(np.concatenate(([0], idx)))
+    return tuple(int(i) for i in idx)
+
+
+def keysteps_from_spec(spec: str, K: int) -> Tuple[int, ...]:
+    """A cache schedule from a CLI spec against a K-step chain: an explicit
+    comma list of ascending step indices ('0,3,7,12'), or 'N@center:power'
+    for an N-evaluation `nonuniform_keysteps` grid (':power' optional,
+    default 1.2)."""
+    spec = spec.strip()
+    if "@" in spec:
+        n, _, cp = spec.partition("@")
+        c, _, p = cp.partition(":")
+        return nonuniform_keysteps(K, int(n), center=float(c),
+                                   power=float(p) if p else 1.2)
+    return tuple(int(s) for s in spec.split(","))
 
 
 def _respaced_seq(sched: DiffusionSchedule, cfg: SamplerConfig,
@@ -313,8 +387,10 @@ def _check_ported(cfg: SamplerConfig, cond_fn):
             "the DPM-Solver++ updates have no reference-guided form")
     if cfg.method not in _PORTED_METHODS:
         raise NotImplementedError(f"sampler method {cfg.method!r} is not ported yet")
-    if cfg.encoder_cache_period > 1 or cfg.cache_keysteps is not None or cfg.cache_branch:
-        raise NotImplementedError("feature caching is not ported yet")
+    if cfg.cache_keysteps is not None and cfg.encoder_cache_period <= 1:
+        raise ValueError(
+            "cache_keysteps requires encoder_cache_period > 1 (the period "
+            "enables caching; the explicit grid then replaces the gate)")
     if cfg.trajectory_every:
         raise NotImplementedError("trajectory_every is not ported yet")
     if cond_fn is not None:
@@ -346,6 +422,7 @@ def inpaint_sample(
     mask: torch.Tensor,
     noise,
     x_init: Optional[torch.Tensor] = None,
+    cache_apply: Optional[Tuple[Callable, Callable]] = None,
     cond_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Run the DDIM or DPM-Solver++(2M) inpainting reverse process.
@@ -358,6 +435,10 @@ def inpaint_sample(
         `init(shape)`, `step(index, shape)` and `inject(timestep, shape)`).
       x_init: optional starting state (default N(0, 1)); with cfg.strength
         < 1 it is instead the CLEAN image to refine (default gt).
+      cache_apply: with cfg.encoder_cache_period > 1 and cfg.cache_branch
+        != -1, the pair (full_fn, cached_fn): full_fn(x, t, masked_image,
+        mask) -> (out, cache) on key steps, cached_fn(x, t, masked_image,
+        mask, cache) -> out on the others.
 
     Returns:
       Inpainted images [B,H,W,3]; with cfg.final_blend the known pixels are
@@ -373,17 +454,37 @@ def inpaint_sample(
     pre = cfg.injection and cfg.injection_point == "pre"
     post = cfg.injection and cfg.injection_point == "post"
 
+    K = len(tables["t"])
+    # key steps by a host mask (after the strength truncation); step 0 is
+    # always one, so `out` and `cache` are set before a cached step reads them
+    is_key = _cache_keymask(cfg, K) if cfg.encoder_cache_period > 1 else None
+    full_fn = cached_fn = cache = None
+    if is_key is not None and cfg.cache_branch != -1:
+        if cache_apply is None:
+            raise ValueError(
+                "cfg.encoder_cache_period > 1 requires cache_apply=(full_fn, cached_fn)")
+        full_fn, cached_fn = cache_apply
+
     x = _initial_state(sched, cfg, int(tables["t"][0]), gt, x_init, noise)
     # dpm: the previous x0 prediction, read only where corr > 0 (never at
     # step 0)
     prev_x0 = None if ddim else torch.zeros_like(x)
-    for i in range(len(tables["t"])):
+    for i in range(K):
         s = {k: v[i] for k, v in xs.items()}
         # a step whose host gate is 0 adds exactly nothing; skip its draw
         if pre and tables["pre_inject_gate"][i] > 0:
             x = _maybe_pre_inject(x, s, gt, keep,
                                   noise.inject(int(tables["t"][i]), gt.shape))
-        out = apply_fn(x, s["t"].expand(B), masked_image, mask)
+        t = s["t"].expand(B)
+        if full_fn is None:
+            # no feature cache: every step, or (output reuse) the key steps
+            # run the model; the others keep the previous raw output
+            if is_key is None or is_key[i]:
+                out = apply_fn(x, t, masked_image, mask)
+        elif is_key[i]:
+            out, cache = full_fn(x, t, masked_image, mask)
+        else:
+            out = cached_fn(x, t, masked_image, mask, cache)
         raw = out[..., :3]  # learned variance is unused by DDIM and DPM-Solver
         pred_x0, eps = _x0_eps_from_raw(raw, x, s, cfg)
         if ddim:

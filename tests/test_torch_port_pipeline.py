@@ -126,7 +126,7 @@ def test_default_config_is_ddim100_on_ffhq256():
     assert (cfg.schedule, cfg.num_timesteps) == ("quadratic", 1000)
 
 
-@pytest.mark.parametrize("name", ["unipc-20", "ddim-100-deep", "repaint-100-light"])
+@pytest.mark.parametrize("name", ["unipc-20", "consistency-2", "repaint-100-light"])
 def test_unported_presets_raise(pipe, name):
     gt, mask = _inputs(0)
     with pytest.raises(NotImplementedError):

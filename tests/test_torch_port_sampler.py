@@ -184,7 +184,7 @@ def test_uint8_output_is_clamp_then_truncate():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="ddpm"), dict(method="dpm++3m"), dict(encoder_cache_period=3),
+    dict(method="ddpm"), dict(method="dpm++3m"), dict(method="repaint"),
     dict(method="unipc"), dict(trajectory_every=2),
 ])
 def test_unported_options_raise(kw):
