@@ -50,13 +50,24 @@ Phases, one line each (or a few), any failure exits non-zero:
    the plain attention forced; then `ddim-100-deep` and exact `ddim-100` at
    batch 16, their launches and images gated, printed as one line in
    `bench.py`'s schema;
-8. a JSON line of the kernels, then the contract line
+8. the evaluate path at full width: `fidm_tpu_torch.cli.evaluate` on phase
+   5's `.pt` over 8 seeded 256² PNGs with box and brush masks (`ddim-100`
+   with FID, KID and LPIPS from seeded weights in the published layouts;
+   `ddim-100-deep` against `cli.fid_stats` reference statistics; 10-step
+   runs on the int8 `.npz`, with `--quantize int8` and with `--dtype f32`;
+   a run from `cli.pack_data` shards), each `metrics.json` held to the JAX
+   CLI's keys, every kernel's launches counted, the metric networks on the
+   card held against the CPU; last, one float32 UNet forward profiled (the
+   forward of `--dtype f32`), with torch's TF32 switches and with both off;
+9. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
-Both TF32 switches are off, so float32 products and convolutions are full
-float32 wherever numbers are compared. Without a CUDA device, or without the
-`fidm_tpu_torch` package beside this file, it exits non-zero and prints no
-result.
+Both TF32 switches are off in phases 1-7, so float32 products and
+convolutions are full float32 wherever numbers are compared. Phase 8 runs
+the CLIs under torch's own switches, as a user's process has them: there the
+metric networks keep full float32 by their own scoping, which its gates
+test. Without a CUDA device, or without the `fidm_tpu_torch` package beside
+this file, it exits non-zero and prints no result.
 """
 import collections
 import dataclasses
@@ -164,6 +175,28 @@ QUANT_LAUNCHES = 114
 # that moved the output by 4.9e-2 of its max on an H100 SXM, where bf16
 # activations alone move it by 3-4e-2 (phase 4). The bound is twice that.
 QUANT_UNET_TOL = 0.1
+# Phase 8, the evaluate path: 8 samples in batches of 4 (2 batches), as the
+# JAX CLI's --quick_test sizes a run; the 10-step runs take one batch of 4.
+EVAL_SAMPLES = 8
+EVAL_BATCH = 4
+QUICK_STEPS = 10
+# The metric networks on the card against the same port functions on the
+# CPU, both in full float32 (TF32 off by `metrics.inception.full_float32`
+# alone: phase 8 runs with torch's default switches, cuDNN's TF32 on):
+# the sums of 100+ float32 layers in another order. Inception features 1e-4
+# of the largest feature, LPIPS 1e-5 relative, SSIM 1e-5 absolute.
+EVAL_FEAT_TOL = 1e-4
+EVAL_LPIPS_TOL = 1e-5
+EVAL_SSIM_TOL = 1e-5
+# The keys of the JAX CLI's metrics.json (`fidm_tpu/cli/evaluate.py:496-539`):
+# always, with --fid_weights (FID, and KID for 2 samples or more), with
+# LPIPS weights; and the per-sample lists.
+EVAL_KEYS = {"num_samples", "preset", "sampler", "ssim_mean", "psnr_mean", "hole_ssim_mean",
+             "hole_psnr_mean", "fid_proxy", "time_per_sample_s", "time_per_sample_steady_s",
+             "backend", "per_sample"}
+EVAL_FID_KEYS = {"fid", "kid_mean", "kid_std"}
+EVAL_LPIPS_KEYS = {"lpips_mean", "hole_lpips_mean"}
+EVAL_PER_SAMPLE = {"ssim", "psnr", "hole_ssim", "hole_psnr"}
 
 
 def fail(msg):
@@ -1139,6 +1172,319 @@ def bench_line(torch, np, pipe, n_attn, smi):
         "exact_time_per_sample_s": exact_tps}), flush=True)
 
 
+def write_eval_tree(np, root, size, n, seed):
+    """n smooth seeded PNGs (low-frequency colour waves and mild noise) in
+    root/images, and a mask root with a test/ dir of a box and a brush mask
+    (black = hole). Returns (image dir, mask root, the masks in the order
+    the ordered loader cycles them, 1 = hole)."""
+    from PIL import Image
+
+    img_dir, mask_dir = root / "images", root / "masks" / "test"
+    img_dir.mkdir(parents=True)
+    mask_dir.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    for i in range(n):
+        freq = rng.uniform(0.5, 3.0, (3, 2))
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        base = np.stack([np.sin(2 * np.pi * (fy * yy + fx * xx) + ph)
+                         for (fy, fx), ph in zip(freq, phase)], -1)
+        arr = np.clip(127.5 + 100 * base + rng.normal(0, 6, base.shape), 0, 255)
+        Image.fromarray(arr.astype(np.uint8)).save(img_dir / f"face_{i:02d}.png")
+    box = np.zeros((size, size), np.float32)
+    box[size // 4:3 * size // 4, size // 8:5 * size // 8] = 1.0
+    brush = request_inputs(np, 1, size)[1][..., 0]
+    masks = [box, brush]
+    for j, (name, m) in enumerate(zip(("box", "brush"), masks)):
+        Image.fromarray(np.where(m > 0.5, 0, 255).astype(np.uint8)).save(
+            mask_dir / f"mask_{j}_{name}.png")
+    return img_dir, root / "masks", masks
+
+
+def write_metric_weights(torch, root):
+    """Seeded Inception (pt_inception layout, non-trivial BN statistics),
+    AlexNet and LPIPS-head state dicts from the repository's test oracles,
+    as files: {"fid", "alex", "lin"}: path."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from oracle_fid_inception import FIDInceptionOracle
+    from oracle_fid_inception import randomize as randomize_inception
+    from oracle_lpips import LPIPSOracle
+    from oracle_lpips import randomize as randomize_lpips
+
+    paths = {"fid": root / "pt_inception.pth", "alex": root / "alexnet.pth",
+             "lin": root / "lpips_lin.pt"}
+    torch.save(randomize_inception(FIDInceptionOracle(), seed=0).state_dict(), paths["fid"])
+    oracle = randomize_lpips(LPIPSOracle(), seed=0)
+    torch.save(oracle.alexnet_state_dict(), paths["alex"])
+    torch.save(oracle.lpips_state_dict(), paths["lin"])
+    return {k: str(v) for k, v in paths.items()}
+
+
+def check_eval_blob(np, label, blob, keys, per_sample, masks, n):
+    """metrics.json against the JAX CLI's layout: its keys, n values per
+    sample, None exactly where the JAX CLI gives None (a hole score of a
+    sample whose mask has no hole, or none outside the SSIM border band),
+    every other number finite."""
+    from fidm_tpu_torch.metrics.ssim import DEFAULT_WIN_SIZE
+
+    check(set(blob) == keys, f"{label}: metrics.json keys {sorted(set(blob) ^ keys)} differ "
+                             f"from the JAX CLI's")
+    check(set(blob["per_sample"]) == per_sample,
+          f"{label}: per-sample keys {sorted(blob['per_sample'])}")
+    r = (DEFAULT_WIN_SIZE - 1) // 2
+    for key, values in blob["per_sample"].items():
+        check(len(values) == n, f"{label}: {len(values)} values of {key}, not {n}")
+        for i, v in enumerate(values):
+            m = masks[i % len(masks)]
+            scorable = m[r:-r, r:-r].sum() > 0 if key == "hole_ssim" else m.sum() > 0
+            if key.startswith("hole_") and not scorable:
+                check(v is None, f"{label}: {key}[{i}] is {v}, the JAX CLI gives None")
+            else:
+                check(v is not None and np.isfinite(v), f"{label}: {key}[{i}] = {v}")
+    for key, v in blob.items():
+        if isinstance(v, float):
+            check(np.isfinite(v), f"{label}: {key} = {v}")
+
+
+def check_known_pixels(np, label, out_dir, masks, n):
+    """Each inpainted PNG equals its original PNG outside the hole, and
+    differs inside it."""
+    from PIL import Image
+
+    for i in range(n):
+        out = np.asarray(Image.open(out_dir / "inpainted" / f"{i:05d}.png"))
+        gt = np.asarray(Image.open(out_dir / "original" / f"{i:05d}.png"))
+        keep = masks[i % len(masks)] < 0.5
+        check(out.shape == gt.shape and np.array_equal(out[keep], gt[keep]),
+              f"{label}: inpainted image {i}: known pixels differ from the original")
+        check(not np.array_equal(out[~keep], gt[~keep]), f"{label}: image {i}: hole unfilled")
+
+
+def metric_networks(torch, np, out_dir, weights, masks, n, smi):
+    """Phase 8: Inception, LPIPS and SSIM on the card against the same port
+    functions on the CPU, on the first evaluate run's images, under torch's
+    default TF32 switches (cuDNN's on): the tolerances hold only if the
+    metric calls run in full float32 (`metrics.inception.full_float32`).
+    Also their device time per batch of EVAL_BATCH on the card, and, as a
+    witness that the Inception gate sees TF32, the card's features from the
+    same network called outside `full_float32`."""
+    from PIL import Image
+
+    from fidm_tpu_torch import metrics
+    from fidm_tpu_torch.data.dataset import load_image
+    from fidm_tpu_torch.metrics.inception import preprocess
+
+    def images(kind):
+        return np.stack([load_image(out_dir / kind / f"{i:05d}.png", masks[0].shape[0])
+                         for i in range(n)])
+
+    gt, out = images("original"), images("inpainted")
+    mask = np.stack([masks[i % len(masks)] for i in range(n)])[..., None].astype(np.float32)
+    params = metrics.convert_torch_inception_weights(torch.load(weights["fid"]))
+    alex = {k: v.numpy() for k, v in torch.load(weights["alex"]).items()}
+    lin = {k: v.numpy() for k, v in torch.load(weights["lin"]).items()}
+    lp_weights = metrics.lpips.convert_torch_lpips_weights(alex, lin)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        inception = metrics.InceptionFeatureExtractor(params, device=device)
+        lpips = metrics.LPIPS(lp_weights, device=device)
+        g, o, m = (torch.from_numpy(a).to(device) for a in (gt, out, mask))
+        rows[device] = dict(
+            feats=inception((o + 1) / 2), lpips=lpips(g, o), hole_lpips=lpips.masked(g, o, m),
+            ssim=metrics.ssim((g + 1) / 2, (o + 1) / 2).cpu().numpy(),
+            hole_ssim=metrics.masked_ssim((g + 1) / 2, (o + 1) / 2, m).cpu().numpy())
+        if device == "cuda":
+            with torch.inference_mode():  # TF32 as the process has it
+                tf32_feats = inception.model(preprocess((o + 1) / 2)).cpu().numpy()
+            b = slice(0, EVAL_BATCH)
+            g4, o4, m4 = g[b], o[b], m[b]
+            times = {
+                "inception": device_ms(torch, lambda: inception((o4 + 1) / 2), n=5),
+                "lpips": device_ms(torch, lambda: lpips(g4, o4), n=5),
+                "hole lpips": device_ms(torch, lambda: lpips.masked(g4, o4, m4), n=5),
+                "ssim": device_ms(torch, lambda: metrics.ssim((g4 + 1) / 2, (o4 + 1) / 2), n=5),
+                "hole ssim": device_ms(
+                    torch, lambda: metrics.masked_ssim((g4 + 1) / 2, (o4 + 1) / 2, m4), n=5)}
+            t0 = time.perf_counter()
+            inception((o4 + 1) / 2)
+            host_inception = time.perf_counter() - t0
+        del inception, lpips
+    torch.cuda.empty_cache()
+    card, cpu = rows["cuda"], rows["cpu"]
+    feat_err = np.abs(card["feats"] - cpu["feats"]).max() / np.abs(cpu["feats"]).max()
+    tf32_err = np.abs(tf32_feats - cpu["feats"]).max() / np.abs(cpu["feats"]).max()
+    lp_err = max(np.abs(card[k] / cpu[k] - 1).max() for k in ("lpips", "hole_lpips"))
+    ssim_err = max(np.abs(card[k] - cpu[k]).max() for k in ("ssim", "hole_ssim"))
+    print(f"[8] metric networks, card against CPU on {n} images at {masks[0].shape[0]}^2: "
+          f"Inception features max abs / max |feature| {feat_err:.3g} (tol {EVAL_FEAT_TOL}), "
+          f"LPIPS and hole LPIPS max relative {lp_err:.3g} (tol {EVAL_LPIPS_TOL}), SSIM and "
+          f"hole SSIM max abs {ssim_err:.3g} (tol {EVAL_SSIM_TOL}); the same Inception outside "
+          f"full_float32 (cuDNN TF32 {torch.backends.cudnn.allow_tf32}) {tf32_err:.3g}", flush=True)
+    print(f"[8] device ms per batch of {EVAL_BATCH} on the card (torch.profiler): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f"; one Inception call, host clock with its download, {host_inception * 1e3:.3f} ms;"
+          f" {smi}", flush=True)
+    check(feat_err <= EVAL_FEAT_TOL, "Inception features: card and CPU disagree")
+    check(lp_err <= EVAL_LPIPS_TOL, "LPIPS: card and CPU disagree")
+    check(ssim_err <= EVAL_SSIM_TOL, "SSIM: card and CPU disagree")
+
+
+def phase_evaluate(torch, np, ckpt, npz, n_attn, smi):
+    """Phase 8: the evaluate path on the card at full width (the CLIs'
+    default model, 256²) through `cli.evaluate`, `cli.fid_stats` and
+    `cli.pack_data`. Returns the float32 run's attention launches."""
+    from fidm_tpu_torch import SAMPLER_PRESETS, PipelineConfig
+    from fidm_tpu_torch.cli import evaluate as evaluate_cli
+    from fidm_tpu_torch.cli import fid_stats as fid_stats_cli
+    from fidm_tpu_torch.cli import pack_data as pack_cli
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.metrics import fid as fid_module
+    from fidm_tpu_torch.ops import LAUNCHES
+
+    t_phase = time.perf_counter()
+    size = PipelineConfig().unet.image_size
+    sched = DiffusionSchedule.create("quadratic", 1000, device="cpu")
+    fd_seconds = []
+    real_fd = fid_module.frechet_distance
+
+    def timed_fd(*args, **kw):  # the host's sqrtm, timed where the CLIs call it
+        t0 = time.perf_counter()
+        result = real_fd(*args, **kw)
+        fd_seconds.append((len(args[0]), time.perf_counter() - t0))
+        return result
+
+    import fidm_tpu_torch.metrics as metrics_pkg
+
+    metrics_pkg.frechet_distance = fid_module.frechet_distance = timed_fd
+    try:
+        with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_eval_") as tmp:
+            tmp = Path(tmp)
+            img_dir, mask_root, masks = write_eval_tree(np, tmp, size, EVAL_SAMPLES, seed=5)
+            weights = write_metric_weights(torch, tmp)
+            data = ["--data_dir", str(img_dir), "--mask_dir", str(mask_root),
+                    "--device", "cuda"]
+            full = ["--num_samples", str(EVAL_SAMPLES), "--batch_size", str(EVAL_BATCH)]
+            quick = ["--ddim_timesteps", str(QUICK_STEPS), "--num_samples", str(EVAL_BATCH),
+                     "--batch_size", str(EVAL_BATCH), "--no_save_images"]
+
+            def evaluate(label, out, *argv):
+                LAUNCHES.clear()
+                t0 = time.perf_counter()
+                results = evaluate_cli.main(data + ["--output_dir", str(out), *argv])
+                secs = time.perf_counter() - t0
+                launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+                with open(out / "metrics.json") as f:
+                    blob = json.load(f)
+                print(f"[8] {label}: {secs:.3f} s wall; time_per_sample_s "
+                      f"{results['time_per_sample_s']:.6f}, steady "
+                      f"{results['time_per_sample_steady_s']:.6f}; ssim "
+                      f"{results['ssim_mean']:.6g}, psnr {results['psnr_mean']:.6g}, hole ssim "
+                      f"{results['hole_ssim_mean']:.6g}, "
+                      f"fid_proxy {results['fid_proxy']:.6g}"
+                      + "".join(f", {k} {results[k]:.6g}" for k in
+                                ("fid", "kid_mean", "lpips_mean", "hole_lpips_mean")
+                                if k in results)
+                      + f"; backend {results['backend']}; launches {launches}; {smi}", flush=True)
+                return blob, launches
+
+            def attention(preset, steps=None):
+                cfg = SAMPLER_PRESETS[preset]
+                if steps is not None:
+                    cfg = dataclasses.replace(cfg, num_steps=steps)
+                return attention_per_call(sched, cfg, n_attn)
+
+            # ddim-100 with real FID, KID and LPIPS
+            out1 = tmp / "ddim-100"
+            blob, launches = evaluate(
+                "evaluate --preset ddim-100 with --fid_weights and LPIPS", out1,
+                "--checkpoint", str(ckpt), *full, "--fid_weights", weights["fid"],
+                "--lpips_alexnet", weights["alex"], "--lpips_lin", weights["lin"])
+            check_eval_blob(np, "[8] ddim-100", blob, EVAL_KEYS | EVAL_FID_KEYS | EVAL_LPIPS_KEYS,
+                            EVAL_PER_SAMPLE | {"lpips", "hole_lpips"}, masks, EVAL_SAMPLES)
+            check_known_pixels(np, "[8] ddim-100", out1, masks, EVAL_SAMPLES)
+            expect = attention("ddim-100") * EVAL_SAMPLES // EVAL_BATCH
+            check(launches == {"attention": expect, "attention.bf16": expect},
+                  f"[8] ddim-100: launches {launches}, not {expect} of the bf16 kernel")
+            metric_networks(torch, np, out1, weights, masks, EVAL_SAMPLES, smi)
+
+            # reference statistics once, then ddim-100-deep scored against them
+            stats = tmp / "stats.npz"
+            t0 = time.perf_counter()
+            info = fid_stats_cli.main(["--data_dir", str(img_dir), "--fid_weights",
+                                       weights["fid"], "--out", str(stats), "--image_size",
+                                       str(size), "--device", "cuda"])
+            print(f"[8] cli.fid_stats on the data: {info}, {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+            check(info["num_images"] == EVAL_SAMPLES and info["dim"] == 2048, "fid_stats")
+            blob, launches = evaluate(
+                "evaluate --preset ddim-100-deep --fid_stats", tmp / "deep",
+                "--checkpoint", str(ckpt), "--preset", "ddim-100-deep", *full,
+                "--fid_weights", weights["fid"], "--fid_stats", str(stats))
+            check_eval_blob(np, "[8] ddim-100-deep", blob, EVAL_KEYS | EVAL_FID_KEYS,
+                            EVAL_PER_SAMPLE, masks, EVAL_SAMPLES)
+            expect = attention("ddim-100-deep") * EVAL_SAMPLES // EVAL_BATCH
+            check(launches == {"attention": expect, "attention.bf16": expect},
+                  f"[8] ddim-100-deep: launches {launches}, not {expect} of the bf16 kernel")
+
+            # the inpainted PNGs against the stats (pytorch-fid's two-dirs flow)
+            t0 = time.perf_counter()
+            report = fid_stats_cli.main(["--fake_dir", str(out1 / "inpainted"), "--fid_stats",
+                                         str(stats), "--fid_weights", weights["fid"],
+                                         "--image_size", str(size), "--device", "cuda"])
+            print(f"[8] cli.fid_stats --fake_dir on the ddim-100 PNGs: {report}, "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            check(report["num_real"] == report["num_fake"] == EVAL_SAMPLES
+                  and all(np.isfinite(report[k]) for k in ("fid", "kid_mean")),
+                  f"fid_stats --fake_dir report {report}")
+
+            # 10-step runs of one batch: the int8 .npz, --quantize int8, --dtype f32
+            blob_npz, launches = evaluate("evaluate --checkpoint int8.npz, 10 steps",
+                                          tmp / "npz", "--checkpoint", str(npz), *quick)
+            check_eval_blob(np, "[8] int8 .npz", blob_npz, EVAL_KEYS, EVAL_PER_SAMPLE, masks,
+                            EVAL_BATCH)
+            expect = attention("ddim-100", QUICK_STEPS)
+            check(launches == {"attention": expect, "attention.bf16": expect},
+                  f"[8] int8 .npz: launches {launches}, not {expect} of the bf16 kernel")
+            blob_q, launches = evaluate("evaluate --quantize int8, 10 steps", tmp / "q",
+                                        "--checkpoint", str(ckpt), "--quantize", "int8", *quick)
+            check(launches == {"attention": expect, "attention.bf16": expect,
+                               "quantize": QUANT_LAUNCHES},
+                  f"[8] --quantize int8: launches {launches}, not {expect} of the bf16 kernel "
+                  f"and {QUANT_LAUNCHES} of the quantize kernel")
+            # the same kernel, seeds (1, 2, ... in tree order) and weights as
+            # phase 5's CLI wrote into the .npz: the same images
+            same = blob_q["per_sample"] == blob_npz["per_sample"]
+            print(f"[8] --quantize int8 equals the int8 .npz run per sample: {same}", flush=True)
+            check(same, "--quantize int8 and the int8 .npz gave other metrics")
+            blob, f32_launches = evaluate("evaluate --dtype f32, 10 steps", tmp / "f32",
+                                          "--checkpoint", str(ckpt), "--dtype", "f32", *quick)
+            check_eval_blob(np, "[8] --dtype f32", blob, EVAL_KEYS, EVAL_PER_SAMPLE, masks,
+                            EVAL_BATCH)
+            check(f32_launches == {"attention": expect, "attention.f32": expect},
+                  f"[8] --dtype f32: launches {f32_launches}, not {expect} of the f32 kernel")
+
+            # the data packed into shards, then the .npz run again from them
+            t0 = time.perf_counter()
+            packed = pack_cli.main(["--data_dir", str(img_dir), "--out", str(tmp / "packed"),
+                                    "--image_size", str(size)])
+            print(f"[8] cli.pack_data: {packed}, {time.perf_counter() - t0:.3f} s", flush=True)
+            data[1] = str(tmp / "packed")
+            blob, _ = evaluate("evaluate --checkpoint int8.npz from the packed shards",
+                               tmp / "packed_run", "--checkpoint", str(npz), *quick)
+            same = blob["per_sample"] == blob_npz["per_sample"]
+            print(f"[8] packed and PNG runs equal per sample: {same}", flush=True)
+            check(same, "the packed and the PNG run gave other metrics")
+    finally:
+        metrics_pkg.frechet_distance = fid_module.frechet_distance = real_fd
+    inception_s = [t for dim, t in fd_seconds if dim == 2048]
+    print(f"[8] frechet_distance on the host, s: at 2048^2 (Inception) "
+          + ", ".join(f"{t:.3f}" for t in inception_s) + "; at 256^2 (proxy) "
+          + ", ".join(f"{t:.3f}" for dim, t in fd_seconds if dim != 2048)
+          + f"; phase wall {time.perf_counter() - t_phase:.1f} s, of it "
+          f"{sum(inception_s):.1f} s in the 2048^2 calls; {smi}", flush=True)
+    return f32_launches.get("attention.f32", 0)
+
+
 def main():
     import torch
 
@@ -1151,6 +1497,7 @@ def main():
         from fidm_tpu_torch.cli import quantize as quantize_cli
         from fidm_tpu_torch.models import InpaintingUNet
         from fidm_tpu_torch.models.layers import AttentionBlock
+        from fidm_tpu_torch.models.weights import load_adm_checkpoint
         from fidm_tpu_torch.ops import LAUNCHES, attention, build, kernel_override
         from fidm_tpu_torch.ops import quantize as quantize_ops
         from fidm_tpu_torch.quant import int8 as quant_int8
@@ -1158,6 +1505,8 @@ def main():
         from fidm_tpu_torch.sampling.sampler import _ddim_tables, _dpm_tables
     except ImportError as e:
         fail(f"the fidm_tpu_torch package is not importable from here: {e}")
+    # torch's own TF32 switches, which phase 8 runs under, as a user's process
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1322,9 +1671,11 @@ def main():
           "dpm-25-sde: kernel and plain paths disagree")
 
     # 5. the quantization path at full width
-    # the checkpoint outlives phase 5: the server of phase 6 loads it
+    # the checkpoint and the .npz outlive phase 5: the server of phase 6
+    # and the evaluate runs of phase 8 load them
     ckpt_dir = tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_ckpt_")
     ckpt = Path(ckpt_dir.name) / "ffhq256_random.pt"
+    npz = Path(ckpt_dir.name) / "int8.npz"
     with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_") as tmp:
         tmp = Path(tmp)
         torch.save({k: v.cpu() for k, v in pipe.model.state_dict().items()}, ckpt)
@@ -1339,7 +1690,7 @@ def main():
             torch.cuda.synchronize()
             return report, time.perf_counter() - t0, {n: LAUNCHES[n] for n in build.KERNELS}
 
-        report, quant_s, quant_launches = quantize(tmp / "int8.npz")
+        report, quant_s, quant_launches = quantize(npz)
         print(f"[5] quantize CLI (absmax): {quant_s:.4f} s wall, compression "
               f"{report['compression']}, {report['tensors_quantized']} tensors, "
               f"launches {quant_launches}", flush=True)
@@ -1348,7 +1699,7 @@ def main():
         check(quant_launches["quantize"] == QUANT_LAUNCHES,
               f"quantize kernel launches {quant_launches['quantize']} != {QUANT_LAUNCHES}")
         t0 = time.perf_counter()
-        compared, differ = check_cli_rounding(torch, np, ckpt, config.unet, tmp / "int8.npz",
+        compared, differ = check_cli_rounding(torch, np, ckpt, config.unet, npz,
                                               quantize_ops, quant_int8)
         print(f"[5] the .npz's kernel-rounded tensors against the plain version at their "
               f"seeds: {compared} compared, {len(differ)} differ "
@@ -1357,7 +1708,7 @@ def main():
               f"{compared} kernel-rounded tensors compared, differing: {differ[:5]}")
         cli_stages(torch, np, ckpt, config.unet, tmp / "stages.npz")
         report2, again_s, _ = quantize(tmp / "int8_again.npz")
-        with np.load(tmp / "int8.npz") as a, np.load(tmp / "int8_again.npz") as b:
+        with np.load(npz) as a, np.load(tmp / "int8_again.npz") as b:
             same = a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
         print(f"[5] the same command again: {again_s:.4f} s wall; bit-identical "
               f".npz: {same}", flush=True)
@@ -1375,7 +1726,7 @@ def main():
 
         qpipe = InpaintingPipeline.create(config, seed=0, device="cuda")
         qpipe.model.load_state_dict(
-            load_quantized_state_dict(str(tmp / "int8.npz"), config.unet), strict=True)
+            load_quantized_state_dict(str(npz), config.unet), strict=True)
 
     LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -1406,7 +1757,6 @@ def main():
 
     # 6. the serving path at full width, on phase 5's checkpoint
     phase_serving(torch, np, ckpt, pipe, n_attn, smi)
-    ckpt_dir.cleanup()
 
     # 7. feature caching at full width, on phase 3's pipeline and inputs
     with torch.inference_mode():
@@ -1414,9 +1764,38 @@ def main():
     cached_presets(torch, pipe, n_attn, gt, mask, keep, out, smi)
     bench_line(torch, np, pipe, n_attn, smi)
 
-    # 8. the record
+    # 8. the evaluate path at full width, on phase 5's checkpoint and .npz,
+    # under torch's default TF32 switches: the CLIs as a user runs them
+    del pipe
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    print(f"[8] TF32 switches as torch sets them: matmul {tf32_defaults[0]}, cuDNN "
+          f"{tf32_defaults[1]}", flush=True)
+    eval_f32_launches = phase_evaluate(torch, np, ckpt, npz, n_attn, smi)
+    # where the time of `--dtype f32` goes: one float32 forward with torch's
+    # TF32 switches (the CLI's), then with both off, profiled last, since it
+    # may leave device memory allocated (cuDNN's float32 convolutions) that
+    # would enter the peak memory of phases 3-7
+    before = torch.cuda.memory_allocated()
+    f32_model = InpaintingUNet(dataclasses.replace(config.unet, dtype=torch.float32))
+    f32_model.load_state_dict(load_adm_checkpoint(str(ckpt), config.unet), strict=True)
+    f32_model = f32_model.to("cuda").eval()
+    with torch.inference_mode():
+        profile_forward(torch, f"[8] one float32 UNet forward B={BATCH} (--dtype f32, "
+                        f"cuDNN TF32 {tf32_defaults[1]})", lambda: f32_model(x, t, masked, mask))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        profile_forward(torch, f"[8] one float32 UNet forward B={BATCH} (--dtype f32, TF32 "
+                        f"off)", lambda: f32_model(x, t, masked, mask))
+    del f32_model
+    torch.cuda.empty_cache()
+    print(f"[8] device memory allocated before that model {before} bytes, after it is "
+          f"deleted {torch.cuda.memory_allocated()} bytes", flush=True)
+    ckpt_dir.cleanup()
+
+    # 9. the record
     # launches: attention_bf16 in phase 3's DDIM-100 call, attention_f32 in
-    # phase 4's float32 UNet forward, quantize in phase 5's absmax CLI run
+    # phase 8's `cli.evaluate --dtype f32` run (its user path; phase 4's
+    # float32 forward launched it too), quantize in phase 5's absmax CLI run
     kernels = [dict(name="attention_bf16", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
@@ -1424,7 +1803,7 @@ def main():
                dict(name="attention_f32", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
-                    launches=f32_launches["attention.f32"], **attn_rows[torch.float32]),
+                    launches=eval_f32_launches, **attn_rows[torch.float32]),
                dict(name="quantize", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/quantize.cu",
                     replaces="fidm_tpu/quant/int8.py:28",

@@ -45,6 +45,19 @@ def _leaves(tree, prefix=()):
             yield p, v
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and the test run shares the CPU between
+    its workers, where torch's default pool of one thread per core spins
+    against the other workers (alone on an 8-core CPU this module took 176 s
+    of CPU in 63 s, and 80 s in 67 s on one thread): one intra-op thread for
+    this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_variables():
     return perturbed_jax_variables(JCFG, seed=3)

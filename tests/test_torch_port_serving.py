@@ -55,6 +55,17 @@ def _redraw_zero_convs(model, seed=1):
                 m.reset_parameters()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The model here is tiny, and the test run shares the CPU between its
+    workers, where torch's default pool of one thread per core spins against
+    the other workers: one intra-op thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pipeline():
     pipe = InpaintingPipeline.create(TINY, device="cpu")
