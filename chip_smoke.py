@@ -86,7 +86,16 @@ import urllib.request
 from pathlib import Path
 
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 / f32
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 / f32 CUDA cores
+# The float32 kernel takes every product as three TF32 products of split
+# operands (3xTF32) on the tensor cores: its bound counts three times the
+# operations at the dense TF32 peak. The CUDA-core figure (PEAK_FLOPS'
+# float32, one product each) is printed beside it.
+PEAK_TF32_FLOPS = 494.7e12
+TF32_SPLIT_PRODUCTS = 3
+# Phase 2's head dims for the f32 kernel: the UNet's 64, and 32 and 128, which
+# the kernel takes too (the bf16 rows: 64 and 32)
+F32_HEAD_DIMS = (64, 32, 128)
 ATOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 # The bf16 kernel against the plain version run in float32 on the same bf16
 # inputs: |err| <= 2^-8 |ref| + 3e-3. The kernel rounds only P (unnormalised,
@@ -102,7 +111,8 @@ BATCH = 4
 SERVE_BATCHES = (1, 4, 8)
 # The main path, kernel against plain attention (phase 4), with what this
 # script measured on an H100 SXM. One UNet forward, max abs / max |plain|: in
-# float32 only the order of the sums differs (4.4e-6); in bf16 the plain
+# float32 the kernel's 3xTF32 products and the order of the sums differ (4.0e-6;
+# 4.4e-6 with the CUDA-core kernel before them); in bf16 the plain
 # version rounds the attention logits to bf16 and the kernel does not, which
 # in this random-weight model moves the output by 2e-2, inside the 3-4e-2
 # that separates the bf16 model from its own float32 copy. The DDIM-100
@@ -272,12 +282,19 @@ def device_ms(torch, fn, n=20, tries=3):
     return cuda_ms(torch, fn)
 
 
-def attention_bound(b, h, s, d, dtype):
+def attention_bound(b, h, s, d, dtype, cuda_cores=False):
     """(bound_ms, bound_by) for one attention call: q, k, v read once and o
-    written once, against the two products' 4*B*H*S*S*D operations."""
+    written once, against the two products' 4*B*H*S*S*D operations, in
+    float32 three TF32 products each on the tensor cores (`cuda_cores`: one
+    each at the CUDA cores' float32 peak, the figure of the kernel before
+    3xTF32)."""
     itemsize = 2 if dtype == "torch.bfloat16" else 4
     bytes_ms = 4 * b * h * s * d * itemsize / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 4 * b * h * s * s * d / PEAK_FLOPS[dtype] * 1e3
+    flops = 4 * b * h * s * s * d
+    if dtype == "torch.bfloat16" or cuda_cores:
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    else:
+        ops_ms = TF32_SPLIT_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -307,7 +324,8 @@ def phase_kernels(torch, F, attention, kernel_override):
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     batches = (BATCH,) + tuple(b for b in SERVE_BATCHES + (BENCH_BATCH,) if b != BATCH)
-    cases = [(dtype, d, s, b) for dtype in (torch.bfloat16, torch.float32) for d in (64, 32)
+    cases = [(dtype, d, s, b) for dtype in (torch.bfloat16, torch.float32)
+             for d in ((64, 32) if dtype == torch.bfloat16 else F32_HEAD_DIMS)
              for s in (64, 256, 1024, 4096, 100)
              for b in (batches if (dtype, d) == (torch.bfloat16, 64) and s in (64, 256)
                        else (BATCH,))]
@@ -320,7 +338,14 @@ def phase_kernels(torch, F, attention, kernel_override):
             ref = attention.qkv_attention(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         tol = ATOL[str(dtype)]
-        f32_note, f32_excess = "", 0.0
+        f32_note, f32_excess, err64 = "", 0.0, 0.0
+        if dtype == torch.float32:
+            # both against the plain version in float64 on the same inputs
+            ref64 = attention._attention_reference(q.double(), k.double(), v.double())
+            err64 = (out.double() - ref64).abs().max().item()
+            f32_note = (f" | vs plain in f64: kernel {err64:.3g} (tol {tol}), plain "
+                        f"{(ref.double() - ref64).abs().max().item():.3g}")
+            del ref64
         if dtype == torch.bfloat16:
             # both against the plain version in float32 on the same inputs
             ref32 = attention._attention_reference(q.float(), k.float(), v.float())
@@ -330,20 +355,28 @@ def phase_kernels(torch, F, attention, kernel_override):
                         f"(|err| - 2^-8 |ref| {f32_excess:.3g}, tol {BF16_F32_ATOL}), plain "
                         f"{(ref.float() - ref32).abs().max().item():.3g}")
             del ref32, err32
-        picked = attention._key_groups(b * 8, s, attention._sm_count(q.get_device()))
+        sms = attention._sm_count(q.get_device())
+        picked = (attention._key_groups(b * 8, s, sms) if dtype == torch.bfloat16
+                  else attention._f32_tiling(b * 8, s, sms))
         ms = device_ms(torch, lambda: attention._attention_cuda(q, k, v))
         call_ms = cuda_ms(torch, lambda: attention._attention_cuda(q, k, v))
         plain_ms = device_ms(torch, lambda: attention._attention_reference(q, k, v))
         lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
         bound_ms, bound_by = attention_bound(b, 8, s, d, str(dtype))
+        core_ms = (attention_bound(b, 8, s, d, str(dtype), cuda_cores=True)[0]
+                   if dtype == torch.float32 else None)
         print(f"  attention {str(dtype)[6:]} B={b} H=8 S={s} D={d}: "
               f"max_abs_err={err:.3g} (tol {tol}){f32_note} kernel_ms={ms:.5f} "
               f"(wrapper call {call_ms:.5f}) plain_ms={plain_ms:.5f} "
-              f"sdpa_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by})"
-              + (f" key groups {picked}" if dtype == torch.bfloat16 else ""), flush=True)
-        table.append((str(dtype)[6:], b, s, d, ms, bound_ms, bound_by, lib_ms, call_ms))
+              f"sdpa_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}"
+              + (f"; CUDA cores {core_ms:.6f})" if core_ms else ")")
+              + (f" key groups {picked}" if dtype == torch.bfloat16 else f" tiling {picked}"),
+              flush=True)
+        table.append((str(dtype)[6:], b, s, d, ms, bound_ms, bound_by, lib_ms, call_ms, core_ms))
         check(err <= tol, f"attention kernel disagrees with its plain version "
                           f"at B={b} S={s} D={d} {dtype}: {err} > {tol}")
+        check(err64 <= tol, f"f32 attention kernel strays from the float64 plain version "
+                            f"at B={b} S={s} D={d}: {err64} > {tol}")
         check(f32_excess <= BF16_F32_ATOL,
               f"bf16 attention kernel strays from the float32 plain version at "
               f"B={b} S={s} D={d}: |err| - 2^-8 |ref| = {f32_excess} > {BF16_F32_ATOL}")
@@ -356,15 +389,47 @@ def phase_kernels(torch, F, attention, kernel_override):
                       for kg in attention.KEY_GROUPS}
             print(f"      key groups at S={s}, the wrapper picks {picked}: " +
                   ", ".join(f"{kg}: {t:.5f} ms" for kg, t in groups.items()), flush=True)
+        if dtype == torch.float32 and d in (64, 128) and b == BATCH and s != 100:
+            # both tilings of the f32 kernel at this D
+            tilings = {t: device_ms(torch, lambda: attention._attention_cuda(q, k, v, t))
+                       for t in attention.F32_TILINGS}
+            print(f"      f32 tilings at S={s} D={d} (1: 64 rows a block, 2: 128), the "
+                  f"wrapper picks {picked}: " +
+                  ", ".join(f"{t}: {ms_t:.5f} ms" for t, ms_t in tilings.items()), flush=True)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     print("[2] attention summary: dtype B S D | kernel_ms | bound_ms | bound/kernel | "
-          "sdpa_ms | kernel/sdpa | wrapper call ms", flush=True)
-    for dt, b, s, d, ms, bound_ms, bound_by, lib_ms, call_ms in table:
+          "sdpa_ms | kernel/sdpa | wrapper call ms | f32: the CUDA-core bound, "
+          "bound/kernel", flush=True)
+    for dt, b, s, d, ms, bound_ms, bound_by, lib_ms, call_ms, core_ms in table:
         print(f"      {dt:8s} {b} {s:5d} {d:3d} | {ms:.5f} | {bound_ms:.6f} ({bound_by}) | "
-              f"{bound_ms / ms:.3f} | {lib_ms:.5f} | {ms / lib_ms:.2f} | {call_ms:.5f}",
-              flush=True)
+              f"{bound_ms / ms:.3f} | {lib_ms:.5f} | {ms / lib_ms:.2f} | {call_ms:.5f}"
+              + (f" | {core_ms:.6f}, {core_ms / ms:.3f}" if core_ms else ""), flush=True)
     return main_rows
+
+
+def f32_kernel_times(torch, attention):
+    """Device time of the f32 attention kernel of the imported `attention`
+    module at phase 2's f32 shapes, [BATCH, 8, S, D], each call first held to
+    1e-5 of that module's plain version, on the same seeded inputs in every
+    checkout. For an A/B against another checkout, run from that checkout's
+    root (the verify skill has the command); phase 2 times this checkout's
+    kernel."""
+    g = torch.Generator(device="cuda")
+    rows = {}
+    for d in F32_HEAD_DIMS:
+        for s in (64, 256, 1024, 4096, 100):
+            g.manual_seed(s * d)
+            q, k, v = (torch.randn(BATCH, 8, s, d, device="cuda", generator=g)
+                       for _ in range(3))
+            err = (attention._attention_cuda(q, k, v)
+                   - attention._attention_reference(q, k, v)).abs().max().item()
+            check(err <= ATOL["torch.float32"],
+                  f"f32 attention kernel at S={s} D={d}: {err} > {ATOL['torch.float32']}")
+            rows[s, d] = device_ms(torch, lambda: attention._attention_cuda(q, k, v))
+            print(f"  f32 kernel [{BATCH}, 8, {s}, {d}]: {rows[s, d]:.5f} ms "
+                  f"(max_abs_err {err:.3g})", flush=True)
+    return rows
 
 
 def quantize_bound(n, c):
@@ -1534,8 +1599,9 @@ def main():
                  + ptxas_summary(logs.get("quantize", ""), "quantize_kernel")):
         print(f"[1] ptxas {line}", flush=True)
     # 2. each kernel against its plain version
-    print("[2] attention kernel vs plain version (tolerance: f32 1e-5, sums in "
-          "another order; bf16 2e-2, the plain version rounds q*scale, k*scale, "
+    print("[2] attention kernel vs plain version (tolerance: f32 1e-5, 3xTF32 "
+          "products and sums in another order, also against the plain version in "
+          "float64; bf16 2e-2, the plain version rounds q*scale, k*scale, "
           "the logits and the softmax to bf16 where the kernel keeps f32). "
           "*_ms: device time by torch.profiler; wrapper call: CUDA events around "
           "back-to-back calls, host cost included", flush=True)

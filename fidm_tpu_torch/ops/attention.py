@@ -8,13 +8,14 @@ result comes back in the input dtype.
   `_attention_reference`: in bf16 it scales and multiplies in bf16 and casts
   the f32 softmax back to bf16.
 - `csrc/attention.cu` holds the kernels (they replace the Pallas
-  `_attention_kernel`): for bf16 a flash kernel whose two products run on the
-  tensor cores, which multiplies q.k exactly in f32, keeps the softmax in f32
-  and rounds only the unnormalised P to bf16 for P.v; for float32 a kernel on
-  the CUDA cores, all f32. In bf16 the kernel and the plain version therefore
-  differ by bf16 rounding, as the JAX einsum and Pallas paths do (atol 2e-2 in
-  tests/test_ops.py). The kernels read q, k and v as strided views, so the
-  q/k/v chunks of one qkv projection go in without a copy.
+  `_attention_kernel`): flash kernels whose two products run on the tensor
+  cores. In bf16 the kernel multiplies q.k exactly in f32, keeps the softmax in f32
+  and rounds only the unnormalised P to bf16 for P.v, so the kernel and the
+  plain version differ by bf16 rounding, as the JAX einsum and Pallas paths
+  do (atol 2e-2 in tests/test_ops.py). In float32 each product is three TF32
+  products of split operands (3xTF32), within 1e-5 of the plain version. The
+  kernels read q, k and v as strided views, so the q/k/v chunks of one qkv
+  projection go in without a copy.
 
 `qkv_attention` launches the kernel for CUDA tensors and takes the plain
 version for CPU tensors (see `registry`). Its backward recomputes through the
@@ -59,6 +60,10 @@ _fn = None  # the kernel's C entry point, resolved at first use
 # The bf16 kernel's blocks hold 64 query rows in 1 or 2 key groups of 4 warps
 # (`launch_mma_d` in csrc/attention.cu).
 KEY_GROUPS = (1, 2)
+# The float32 kernels' blocks hold 64 or 128 query rows (`launch_f32_d` in
+# csrc/attention.cu): one or two warpgroups of the wgmma kernel for D <= 64,
+# 4 or 8 warps of the mma.sync kernel at D=128.
+F32_TILINGS = (1, 2)
 
 
 def _kernel():
@@ -84,6 +89,14 @@ def _key_groups(bh: int, s: int, sms: int) -> int:
     return 2 if bh * -(-s // 64) < 2 * sms and s > 64 else 1
 
 
+def _f32_tiling(bh: int, s: int, sms: int) -> int:
+    """The float32 kernels' tiling for B*H = bh and S = s on a card of `sms`
+    SMs: blocks of 128 query rows (2) where they alone fill the SMs, since
+    each K/V tile is then read and split once for twice the rows; else of 64
+    (1)."""
+    return 2 if bh * -(-s // 128) >= sms else 1
+
+
 def _row_strides(t: torch.Tensor, name: str):
     """The (b, h, s) strides, in elements, of a [B, H, S, D] view that the
     kernel reads as it is: D contiguous and every row start 16-byte aligned
@@ -102,11 +115,12 @@ def _row_strides(t: torch.Tensor, name: str):
     return sb, sh, ss
 
 
-def _attention_cuda(q, k, v, key_groups=None):
-    """Launch the CUDA kernel on the current stream: the bf16 tensor-core
-    kernel for bfloat16, the CUDA-core kernel for float32. q, k, v may be
-    strided views (see `_row_strides`); the output is contiguous.
-    `key_groups`, one of `KEY_GROUPS`, overrides `_key_groups`' choice."""
+def _attention_cuda(q, k, v, tiling=None):
+    """Launch the CUDA kernel on the current stream: the bf16 kernel for
+    bfloat16, a 3xTF32 kernel for float32. q, k, v may be strided views
+    (see `_row_strides`); the output is contiguous. `tiling` overrides the
+    wrapper's choice: for bf16 the key groups, one of `KEY_GROUPS`; for
+    float32 one of `F32_TILINGS`."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be CUDA tensors on one device")
     dtype = q.dtype
@@ -123,12 +137,14 @@ def _attention_cuda(q, k, v, key_groups=None):
                          f"got {tuple(shape)}")
     strides = (*_row_strides(q, "q"), *_row_strides(k, "k"), *_row_strides(v, "v"))
     device = q.get_device()
-    if key_groups is None:
-        key_groups = _key_groups(b * h, s, _sm_count(device))
+    if tiling is None:
+        sms = _sm_count(device)
+        tiling = (_f32_tiling(b * h, s, sms) if dtype == torch.float32
+                  else _key_groups(b * h, s, sms))
     fn = _kernel()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     params = _PARAMS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          b, h, s, d, _DTYPE_CODES[dtype], key_groups, *strides)
+                          b, h, s, d, _DTYPE_CODES[dtype], tiling, *strides)
     # the current stream's raw handle, without building a torch.cuda.Stream
     # object; the device context is entered only when q is on another device
     if device == torch.cuda.current_device():

@@ -59,6 +59,59 @@ def test_kernel_matches_plain(cuda, s, d, dtype, atol):
     assert (out.float() - ref.float()).abs().max().item() <= atol
 
 
+# The f32 kernel (3xTF32 products, each to about 2^-22) against the plain
+# version run in float64 on the same inputs: the gate of the float32 plain
+# version, which itself lies within 1e-6 of float64 here.
+@pytest.mark.parametrize("s,d", [(1, 64), (15, 32), (64, 64), (100, 128), (256, 64),
+                                 (257, 128), (1024, 64), (4096, 32)])
+def test_f32_kernel_matches_float64(cuda, s, d):
+    q, k, v = _qkv((2, 8, s, d), 10, torch.float32, cuda)
+    out = port_attention._attention_cuda(q, k, v)
+    ref64 = port_attention._attention_reference(q.double(), k.double(), v.double())
+    assert (out.double() - ref64).abs().max().item() <= 1e-5
+
+
+# Logits up to about 45 (q and k scaled by sqrt(8)) and v's rows across
+# binades 2^-6 to 2^6: the split's lo term and the max subtraction carry the
+# result. Held to 1e-5 of max|v| against the plain version in float32 and in
+# float64 (the float32 plain version is itself a few 1e-6 of max|v| off
+# float64 here). q and k rows are not scaled by binades: at logits near 1e5
+# the float32 plain version is 1e-4 off float64.
+@pytest.mark.parametrize("s,d", [(64, 64), (256, 64), (257, 128), (1024, 64), (1024, 32)])
+def test_f32_kernel_wide_range(cuda, s, d):
+    rng = np.random.default_rng(s * d)
+    q, k, v = (rng.standard_normal((2, 8, s, d)).astype(np.float32) for _ in range(3))
+    q, k = q * np.float32(np.sqrt(8)), k * np.float32(np.sqrt(8))
+    v = v * np.exp2(rng.integers(-6, 7, (2, 8, s, 1))).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in (q, k, v))
+    tol = 1e-5 * v.abs().max().item()
+    out = port_attention._attention_cuda(q, k, v)
+    ref = port_attention._attention_reference(q, k, v)
+    ref64 = port_attention._attention_reference(q.double(), k.double(), v.double())
+    assert (out - ref).abs().max().item() <= tol
+    assert (out.double() - ref64).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("s,d", [(1, 64), (64, 64), (100, 32), (256, 64), (257, 128),
+                                 (1024, 64), (4096, 128)])
+def test_f32_tilings_agree(cuda, s, d):
+    """Both tilings of the f32 kernel of this D (wgmma for D <= 64, mma.sync
+    at D=128), whatever `_f32_tiling` picks, within 1e-5 of the plain
+    version; any other tiling raises."""
+    q, k, v = _qkv((2, 8, s, d), 11, torch.float32, cuda)
+    ref = port_attention._attention_reference(q, k, v)
+    before = {n: LAUNCHES[n] for n in ("attention.bf16", "attention.f32")}
+    codes = port_attention.F32_TILINGS
+    for code in codes:
+        out = port_attention._attention_cuda(q, k, v, code)
+        assert (out - ref).abs().max().item() <= 1e-5, code
+    assert LAUNCHES["attention.f32"] == before["attention.f32"] + len(codes)
+    assert LAUNCHES["attention.bf16"] == before["attention.bf16"]
+    for code in (0, 3):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            port_attention._attention_cuda(q, k, v, code)
+
+
 # The bf16 kernel against the plain version run in float32 on the same bf16
 # inputs. The kernel rounds only P (unnormalised, <= 1) and its output to
 # bf16: the output's rounding is at most 2^-8 of its magnitude, and P's adds
