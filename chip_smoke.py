@@ -59,10 +59,23 @@ Phases, one line each (or a few), any failure exits non-zero:
    CLI's keys, every kernel's launches counted, the metric networks on the
    card held against the CPU; last, one float32 UNet forward profiled (the
    forward of `--dtype f32`), with torch's TF32 switches and with both off;
-9. a JSON line of the kernels, then the contract line
+9. the rest of sampling at full width on phase 3's model and inputs: the
+   presets `ddpm-1000` (beside the reference's published s/sample),
+   `ddpm-100`, `dpm3-20`, `unipc-20`, `consistency-2` and
+   `repaint-100-light`; classifier guidance with `ddim-30` (a closed-form
+   gradient) and `ddpm-100` (a gradient taken by autograd) through
+   `InpaintingPipeline.inpaint`; classifier-free guidance at scale 3 on a
+   class-conditional model (batch 8 per model call); `ddim-50` with a
+   trajectory frame every 10 steps; `unipc-20` and `ddpm-100` with the plain
+   attention forced; then `cli.generate` on a full-width 3-channel base UNet
+   `.pt` (dpm++3m, unipc, consistency), `cli.visualize_noise` and
+   `cli.evaluate --save_trajectory` on 4 of phase 8's images. Each call's
+   images and attention launches (4 per model evaluation of the sampler's
+   host tables) are gated;
+10. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
-Both TF32 switches are off in phases 1-7, so float32 products and
+Both TF32 switches are off in phases 1-7 and 9, so float32 products and
 convolutions are full float32 wherever numbers are compared. Phase 8 runs
 the CLIs under torch's own switches, as a user's process has them: there the
 metric networks keep full float32 by their own scoping, which its gates
@@ -207,6 +220,9 @@ EVAL_KEYS = {"num_samples", "preset", "sampler", "ssim_mean", "psnr_mean", "hole
 EVAL_FID_KEYS = {"fid", "kid_mean", "kid_std"}
 EVAL_LPIPS_KEYS = {"lpips_mean", "hole_lpips_mean"}
 EVAL_PER_SAMPLE = {"ssim", "psnr", "hole_ssim", "hole_psnr"}
+# Phase 9: the reference's published DDPM-1000 time per sample (unspecified
+# GPU, ROADMAP.md "Source paper"), printed beside the port's.
+REFERENCE_DDPM1000_S = 33.41
 
 
 def fail(msg):
@@ -694,11 +710,14 @@ def main_inputs(torch, image_size):
 
 
 def preset_steps(sched, cfg):
-    """(steps, key steps) of one inpaint call of `cfg`, from the sampler's own
-    tables and host keymask; without caching every step is a key step."""
-    from fidm_tpu_torch.sampling.sampler import _cache_keymask, _ddim_tables, _dpm_tables
+    """(model-evaluating steps, key steps) of one sampler call of `cfg`, from
+    the sampler's own host tables and keymask: every row of the method's
+    tables but repaint's renoise rows, which run no model; without caching
+    every such step is a key step."""
+    from fidm_tpu_torch.sampling.sampler import _cache_keymask, _method_tables
 
-    K = len((_ddim_tables if cfg.method == "ddim" else _dpm_tables)(sched, cfg)["t"])
+    tables = _method_tables(sched, cfg)
+    K = int(tables["is_denoise"].sum()) if "is_denoise" in tables else len(tables["t"])
     return K, int(_cache_keymask(cfg, K).sum()) if cfg.encoder_cache_period > 1 else K
 
 
@@ -1550,6 +1569,228 @@ def phase_evaluate(torch, np, ckpt, npz, n_attn, smi):
     return f32_launches.get("attention.f32", 0)
 
 
+def phase_sampling(torch, np, ckpt, n_attn, smi):
+    """Phase 9: the rest of sampling at full width on phase 3's pipeline and
+    inputs (the same seeds give the same model): the new presets, classifier
+    and classifier-free guidance, a trajectory, each new method's kernel
+    against plain attention, then `cli.generate`, `cli.visualize_noise` and
+    `cli.evaluate --save_trajectory`. Returns the bf16 attention launches of
+    the phase's kernel-path calls."""
+    from fidm_tpu_torch import SAMPLER_PRESETS, InpaintingPipeline, PipelineConfig
+    from fidm_tpu_torch.cli import evaluate as evaluate_cli
+    from fidm_tpu_torch.cli import generate as generate_cli
+    from fidm_tpu_torch.cli import visualize_noise as noise_cli
+    from fidm_tpu_torch.diffusion import DiffusionSchedule, get_named_beta_schedule
+    from fidm_tpu_torch.models import InpaintingUNet
+    from fidm_tpu_torch.ops import LAUNCHES, kernel_override
+    from fidm_tpu_torch.sampling import GeneratorNoise, classifier_free, inpaint_sample
+    from fidm_tpu_torch.sampling.sampler import _method_tables
+
+    t_phase = time.perf_counter()
+    config = PipelineConfig()
+    size = config.unet.image_size
+    pipe = InpaintingPipeline.create(config, seed=0, device="cuda")
+    redraw_zero_convs(torch, pipe.model, seed=1)
+    gt, mask = main_inputs(torch, size)
+    keep = mask[..., 0] < 0.5
+    total = collections.Counter()
+
+    def run(label, cfg, call, evals=None):
+        """One timed call; gates its images and its attention launches, 4
+        per model evaluation of the host tables (or `evals`)."""
+        if evals is None:
+            evals = preset_steps(pipe.sched, cfg)[0]
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+        total.update(launches)
+        images = out[0] if isinstance(out, tuple) else out
+        print(f"[9] {label} B={BATCH}: {secs:.4f} s per call, {secs / BATCH:.4f} s per sample, "
+              f"{evals} model evaluations; launches {launches}; {smi}", flush=True)
+        expect = n_attn * evals
+        check(launches == {"attention": expect, "attention.bf16": expect},
+              f"[9] {label}: launches {launches}, not {expect} of the bf16 kernel")
+        check_images(torch, f"[9] {label}", images, gt, keep)
+        return out, secs
+
+    # the presets refused before this slice, at their full step counts
+    outs = {}
+    for name in ("ddpm-1000", "ddpm-100", "dpm3-20", "unipc-20", "consistency-2",
+                 "repaint-100-light"):
+        cfg = SAMPLER_PRESETS[name]
+        outs[name], secs = run(name, cfg, lambda: pipe.inpaint(gt, mask, 0, sampler=cfg))
+        if name == "ddpm-1000":
+            print(f"[9] ddpm-1000: {secs / BATCH:.4f} s per sample at batch {BATCH}; the "
+                  f"reference publishes {REFERENCE_DDPM1000_S} s per sample (unspecified GPU)",
+                  flush=True)
+    rows = len(_method_tables(pipe.sched, SAMPLER_PRESETS["repaint-100-light"])["t"])
+    print(f"[9] repaint-100-light: {rows} table rows, "
+          f"{preset_steps(pipe.sched, SAMPLER_PRESETS['repaint-100-light'])[0]} of them "
+          f"denoise rows that run the model", flush=True)
+
+    # classifier guidance: a closed-form gradient with DDIM, and one that
+    # autograd takes through `inpaint` (which then samples under no_grad)
+    ddim30 = SAMPLER_PRESETS["ddim-30"]
+    plain30, _ = run("ddim-30", ddim30, lambda: pipe.inpaint(gt, mask, 0, sampler=ddim30))
+    guided, _ = run("ddim-30 with a closed-form cond_fn", ddim30,
+                    lambda: pipe.inpaint(gt, mask, 0, sampler=ddim30,
+                                         cond_fn=lambda x, t: 0.1 * (0.25 - x)))
+    moved = (guided - plain30).abs()[~keep].mean().item()
+    print(f"[9] ddim-30 guided against unguided, hole mean abs {moved:.4g}", flush=True)
+    check(moved > 1e-3, "[9] the closed-form cond_fn did not move the image")
+    target = torch.linspace(-0.5, 0.5, size, device="cuda")[None, :, None, None]
+
+    def autograd_cond_fn(x, t):
+        logp = -0.05 * ((x - target) ** 2).sum()
+        return torch.autograd.grad(logp, x)[0]
+
+    probe = torch.randn(gt.shape, device="cuda", requires_grad=True)
+    err = (autograd_cond_fn(probe, None) + 0.1 * (probe - target)).abs().max().item()
+    print(f"[9] autograd cond_fn against its closed form on a probe: max abs {err:.3g}",
+          flush=True)
+    check(err <= 1e-6, "[9] the autograd cond_fn's gradient is wrong")
+    ddpm100 = SAMPLER_PRESETS["ddpm-100"]
+    run("ddpm-100 with an autograd cond_fn", ddpm100,
+        lambda: pipe.inpaint(gt, mask, 0, sampler=ddpm100, cond_fn=autograd_cond_fn))
+
+    # classifier-free guidance at scale 3 on a class-conditional model: one
+    # model call of batch 8 per step
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(2)
+        cond_model = InpaintingUNet(dataclasses.replace(config.unet, num_classes=11))
+    cond_model = cond_model.to("cuda").eval().requires_grad_(False)
+    redraw_zero_convs(torch, cond_model, seed=3)
+    batches = []
+
+    def labelled(x, t, mi, m, y):
+        batches.append(x.shape[0])
+        return cond_model(x, t, mi, m, y)
+
+    guide = classifier_free(labelled, y=torch.arange(BATCH, device="cuda"), null_label=10,
+                            scale=3.0)
+
+    def cfg_call():
+        with torch.inference_mode():
+            return inpaint_sample(guide, pipe.sched, ddim30, gt=gt, mask=mask,
+                                  noise=GeneratorNoise(0, "cuda"))
+
+    run("ddim-30 with classifier_free (scale 3, 11 classes)", ddim30, cfg_call)
+    check(set(batches) == {2 * BATCH}, f"[9] classifier_free model batches {set(batches)}")
+    del cond_model
+
+    # a trajectory: ddim-50, a frame every 10 steps
+    traj_cfg = dataclasses.replace(SAMPLER_PRESETS["ddim-50"], trajectory_every=10)
+    (out50, frames), _ = run("ddim-50 with trajectory_every=10", traj_cfg,
+                             lambda: pipe.inpaint(gt, mask, 0, sampler=traj_cfg))
+    K50 = preset_steps(pipe.sched, traj_cfg)[0]
+    same = torch.equal(frames[-1][~keep], out50[~keep])
+    print(f"[9] ddim-50 trajectory: frames {tuple(frames.shape)} {frames.dtype} for {K50} "
+          f"steps; the last frame equals the output in the hole: {same}", flush=True)
+    check(tuple(frames.shape) == ((K50 - 1) // 10 + 1,) + tuple(gt.shape)
+          and frames.dtype == torch.float32, "[9] trajectory frames")
+    check(same, "[9] the last frame differs from the output in the hole")
+
+    # kernel against plain attention, a deterministic and a stochastic method
+    for name in ("unipc-20", "ddpm-100"):
+        before = LAUNCHES["attention"]
+        with kernel_override(False, "attention"):
+            plain = pipe.inpaint(gt, mask, 0, sampler=SAMPLER_PRESETS[name])
+        check(LAUNCHES["attention"] == before, "the plain path launched the kernel")
+        hole = (outs[name] - plain).abs()[~keep]
+        print(f"[9] {name}, plain-attention path: images kernel vs plain in the hole: mean "
+              f"abs {hole.mean().item():.4g} (tol {IMAGE_MEAN_TOL}, phase 4's bound), max "
+              f"{hole.max().item():.4g}", flush=True)
+        check(torch.equal(plain[keep], gt[keep]), f"[9] {name} plain path: known pixels")
+        check(hole.mean().item() <= IMAGE_MEAN_TOL, f"[9] {name}: kernel and plain disagree")
+    del pipe
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_sampling_") as tmp:
+        tmp = Path(tmp)
+        # cli.generate on a full-width 3-channel base UNet (6 out channels)
+        args = generate_cli.parse_args([])
+        base = generate_cli.build_model(args, "cuda")
+        redraw_zero_convs(torch, base, seed=4)
+        base_pt = tmp / "ffhq256_base.pt"
+        torch.save({k: v.cpu() for k, v in base.state_dict().items()}, base_pt)
+        del base
+        lin = DiffusionSchedule.create(args.schedule, args.diffusion_steps, device="cpu")
+        for extra in (["--method", "dpm++3m", "--ddim_timesteps", "20"],
+                      ["--method", "unipc", "--ddim_timesteps", "10"],
+                      ["--method", "consistency"]):
+            out_dir = tmp / f"gen_{extra[1]}"
+            argv = ["--checkpoint", str(base_pt), "--num_samples", "8", "--batch_size", "4",
+                    "--output_dir", str(out_dir), *extra]
+            evals = preset_steps(lin, generate_cli.build_sampler(generate_cli.parse_args(argv)))[0]
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            n = generate_cli.main(argv)
+            secs = time.perf_counter() - t0
+            launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+            total.update(launches)
+            files = sorted(p.name for p in out_dir.iterdir())
+            print(f"[9] cli.generate {' '.join(extra)} (8 samples, batches of 4): {secs:.3f} s "
+                  f"wall, {n} samples, {len(files)} files, {evals} model evaluations a batch; "
+                  f"launches {launches}; {smi}", flush=True)
+            expect = 2 * n_attn * evals
+            check(files == [f"{i:05d}.png" for i in range(8)] + ["grid.png"],
+                  f"[9] cli.generate wrote {files}")
+            check(launches == {"attention": expect, "attention.bf16": expect},
+                  f"[9] cli.generate: launches {launches}, not {expect} of the bf16 kernel")
+
+        # cli.visualize_noise: its SNR table, from the card's float32 alpha_bar
+        t0 = time.perf_counter()
+        snr = noise_cli.main(["--out", str(tmp / "noise"), "--device", "cuda"])
+        worst = 0.0
+        for name, table in snr.items():
+            acp = np.cumprod(1.0 - get_named_beta_schedule(name, 1000))
+            acp32 = acp.astype(np.float32).astype(np.float64)
+            check(np.array_equal(table, acp32 / (1 - acp32)),
+                  f"[9] visualize_noise: the {name} SNR is not the float32 alpha_bar's")
+            worst = max(worst, float(np.max(np.abs(table / (acp / (1 - acp)) - 1))))
+        grid = (tmp / "noise" / "noising_grid.png").exists()
+        print(f"[9] cli.visualize_noise: {time.perf_counter() - t0:.3f} s; SNR tables of "
+              f"{sorted(snr)} equal to the float64 host numbers of the float32 alpha_bar; "
+              f"largest relative distance from the float64 alpha_bar's SNR {worst:.3g}; "
+              f"noising_grid.png {grid}, schedule_curves.png "
+              f"{(tmp / 'noise' / 'schedule_curves.png').exists()}", flush=True)
+        check(grid, "[9] visualize_noise wrote no grid")
+
+        # cli.evaluate --save_trajectory on 4 of phase 8's images
+        img_dir, mask_root, _ = write_eval_tree(np, tmp / "eval", size, EVAL_BATCH, seed=5)
+        out_dir = tmp / "eval_traj"
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        evaluate_cli.main(["--data_dir", str(img_dir), "--mask_dir", str(mask_root),
+                           "--output_dir", str(out_dir), "--checkpoint", str(ckpt),
+                           "--preset", "ddim-30", "--num_samples", str(EVAL_BATCH),
+                           "--batch_size", str(EVAL_BATCH), "--no_save_images",
+                           "--save_trajectory", "10", "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+        total.update(launches)
+        K30 = preset_steps(DiffusionSchedule.create("quadratic", 1000, device="cpu"), ddim30)[0]
+        n_frames = (K30 - 1) // 10 + 1
+        names = sorted(p.name for p in (out_dir / "trajectory").iterdir())
+        from PIL import Image
+
+        shapes = {np.asarray(Image.open(out_dir / "trajectory" / f)).shape for f in names}
+        print(f"[9] cli.evaluate --preset ddim-30 --save_trajectory 10: {secs:.3f} s wall; "
+              f"{names}, shapes {shapes}; launches {launches}", flush=True)
+        check(names == [f"{i:05d}_strip.png" for i in range(EVAL_BATCH)],
+              f"[9] trajectory files {names}")
+        check(shapes == {(size, (n_frames + 2) * size, 3)}, f"[9] strip shapes {shapes}")
+        check(launches == {"attention": n_attn * K30, "attention.bf16": n_attn * K30},
+              f"[9] evaluate --save_trajectory: launches {launches}")
+    print(f"[9] phase wall {time.perf_counter() - t_phase:.1f} s; bf16 attention launches "
+          f"{total['attention.bf16']}; {smi}", flush=True)
+    return total["attention.bf16"]
+
+
 def main():
     import torch
 
@@ -1856,16 +2097,24 @@ def main():
     torch.cuda.empty_cache()
     print(f"[8] device memory allocated before that model {before} bytes, after it is "
           f"deleted {torch.cuda.memory_allocated()} bytes", flush=True)
+
+    # 9. the rest of sampling at full width, both TF32 switches off again
+    # (phase 8's last forward left them so), on phase 3's model and phase 5's
+    # checkpoint
+    sampling_launches = phase_sampling(torch, np, ckpt, n_attn, smi)
     ckpt_dir.cleanup()
 
-    # 9. the record
-    # launches: attention_bf16 in phase 3's DDIM-100 call, attention_f32 in
-    # phase 8's `cli.evaluate --dtype f32` run (its user path; phase 4's
-    # float32 forward launched it too), quantize in phase 5's absmax CLI run
+    # 10. the record
+    # launches: attention_bf16 in phase 3's DDIM-100 call and phase 9's
+    # kernel-path calls (the new methods, guidance, the trajectory, the
+    # CLIs), attention_f32 in phase 8's `cli.evaluate --dtype f32` run (its
+    # user path; phase 4's float32 forward launched it too), quantize in
+    # phase 5's absmax CLI run
     kernels = [dict(name="attention_bf16", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
-                    launches=launches["attention.bf16"], **attn_rows[torch.bfloat16]),
+                    launches=launches["attention.bf16"] + sampling_launches,
+                    **attn_rows[torch.bfloat16]),
                dict(name="attention_f32", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",

@@ -21,12 +21,15 @@ Each batch's noise comes from `batch_noise(seed, batch index)`, a
 threefry draws torch cannot reproduce, so the two CLIs sample other noise.
 `backend` in the results names the torch device type ("cuda" or "cpu").
 
-Not ported yet, and refused with NotImplementedError: orbax checkpoint
-directories (with `--use_ema` or LoRA adapters; they come with training),
-`--save_trajectory` (with the rest of sampling) and `--program_cache` (with
-a CUDA-graph warm cache). Presets whose method is not ported raise
-NotImplementedError before the model is built. The JAX CLI's persistent
-compilation cache has no counterpart: PyTorch runs eagerly.
+Every preset runs. `--save_trajectory K` writes each batch's first 4
+samples as strips (masked input, every K-th sampler state, the output) to
+`output_dir/trajectory/{index:05d}_strip.png`, as the JAX CLI does.
+
+Not ported yet, and refused with NotImplementedError before the model is
+built: orbax checkpoint directories (with `--use_ema` or LoRA adapters; they
+come with training) and `--program_cache` (with a CUDA-graph warm cache).
+The JAX CLI's persistent compilation cache has no counterpart: PyTorch runs
+eagerly.
 """
 from __future__ import annotations
 
@@ -116,7 +119,11 @@ def parse_args(argv=None):
                         "e.g. '17@1.0:2.0'")
     p.add_argument("--save_trajectory", type=int, default=0, metavar="K",
                    help="save every K-th intermediate sampler state as a "
-                        "per-sample strip PNG (not ported yet: 0 only)")
+                        "per-sample horizontal strip PNG under "
+                        "output_dir/trajectory/ (0 = off; the reference's "
+                        "progressive loops, gaussian_diffusion.py:415-445). "
+                        "First 4 samples per batch; adds a frame buffer on "
+                        "the device proportional to num_steps/K")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"],
                    help="compute dtype of the UNet's activations (parameters "
                         "stay float32)")
@@ -171,10 +178,6 @@ def _refuse_unported(args):
             f"{args.checkpoint} is a directory: orbax training checkpoints "
             "(and --use_ema, LoRA adapters) are not ported yet; they come "
             "with the training port. Pass an ADM .pt or an int8 .npz")
-    if args.save_trajectory:
-        raise NotImplementedError(
-            "--save_trajectory is not ported yet: it comes with the rest of "
-            "sampling (trajectory_every)")
     if args.program_cache:
         raise NotImplementedError(
             "--program_cache is not ported yet: it comes with the warm cache "
@@ -232,6 +235,8 @@ def build_sampler(args):
         n_grid = len(_respaced_seq(sched, sampler, host_alphas_cumprod(sched)))
         sampler = dataclasses.replace(
             sampler, cache_keysteps=keysteps_from_spec(args.cache_keysteps, n_grid))
+    if args.save_trajectory:
+        sampler = dataclasses.replace(sampler, trajectory_every=args.save_trajectory)
     return sampler
 
 
@@ -297,7 +302,6 @@ def main(argv=None):
         ssim,
     )
     from ..metrics.ssim import DEFAULT_WIN_SIZE
-    from ..sampling.sampler import _check_ported
     from ..utils import StepTimer, save_comparison_grid, save_png, to_uint8
 
     args = parse_args(argv)
@@ -311,7 +315,6 @@ def main(argv=None):
             "--fid_stats requires --fid_weights (the same InceptionV3 "
             "checkpoint the stats were computed with)")
     sampler = build_sampler(args)
-    _check_ported(sampler, None)
     pipe = build_pipeline(args, sampler)
     device = pipe.device
 
@@ -345,6 +348,9 @@ def main(argv=None):
             pad = 0
         timer.start()
         out_d = pipe.inpaint(gt, mask, args.seed, noise=batch_noise(args.seed, bi, device))
+        traj = None
+        if args.save_trajectory:
+            out_d, traj = out_d
         timer.stop(out_d)
         gt_d = torch.as_tensor(gt, device=device)
         mask_d = torch.as_tensor(mask, device=device)
@@ -352,6 +358,17 @@ def main(argv=None):
             out_d, gt_d, mask_d = out_d[:-pad], gt_d[:-pad], mask_d[:-pad]
             gt, mask = gt[:-pad], mask[:-pad]
         out = out_d.cpu().numpy()
+        if traj is not None:
+            # per-sample strip: masked input, every recorded frame, final
+            traj = traj.cpu().numpy()  # [N, B, H, W, 3]
+            for i in range(min(out.shape[0], 4)):
+                frames = [to_uint8(gt[i] * (1 - mask[i]))]
+                frames += [to_uint8(np.clip(traj[n, i], -1, 1))
+                           for n in range(traj.shape[0])]
+                frames.append(to_uint8(out[i]))
+                save_png(np.concatenate(frames, axis=1),
+                         os.path.join(args.output_dir, "trajectory",
+                                      f"{n_done + i:05d}_strip.png"))
 
         gt01_d = (gt_d + 1) / 2
         out01_d = (out_d + 1) / 2

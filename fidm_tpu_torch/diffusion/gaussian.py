@@ -1,15 +1,21 @@
-"""Gaussian-diffusion math on the main path (PyTorch port, NHWC).
+"""Gaussian-diffusion math (PyTorch port, NHWC).
 
-Counterpart of the main-path subset of `fidm_tpu/diffusion/gaussian.py`:
-the mean/variance parameterisations, q(x_t | x_0), the x0 predictions and
-the known-region injection. Where the JAX module draws noise from a PRNG
-key, these functions take the noise tensor itself.
+Counterpart of `fidm_tpu/diffusion/gaussian.py` up to its likelihood terms:
+the mean/variance parameterisations, q(x_t | x_0) and the posterior, the
+x0/eps/v conversions, p(x_{t-1} | x_t) from a model output, classifier
+guidance (`condition_mean`, `condition_score`) and the known-region
+injection. Where the JAX module draws noise from a PRNG key, these functions
+take the noise tensor itself. The variational-bound terms come with training.
+The samplers do not call these functions, as in the JAX package: they step
+through the respaced chain's per-step host tables (`sampling/sampler.py`),
+whose coefficients are not the full schedule's.
 
 Masks are [B, H, W, 1]; `gt_keep_mask` is 1 = keep (known), 0 = generate.
 """
 from __future__ import annotations
 
 import enum
+from typing import NamedTuple
 
 import torch
 
@@ -19,11 +25,20 @@ __all__ = [
     "ModelMeanType",
     "ModelVarType",
     "extract",
+    "q_mean_variance",
     "q_sample",
+    "q_posterior_mean_variance",
     "predict_xstart_from_eps",
     "predict_xstart_from_xprev",
+    "predict_eps_from_xstart",
     "predict_xstart_from_v",
+    "velocity_from_eps_xstart",
     "split_model_output",
+    "model_variance",
+    "p_mean_variance",
+    "PMeanVariance",
+    "condition_mean",
+    "condition_score",
     "apply_inpainting_injection",
 ]
 
@@ -58,6 +73,15 @@ def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     return vals.reshape(vals.shape + (1,) * (ndim - 1))
 
 
+def q_mean_variance(sched: DiffusionSchedule, x_start, t):
+    """q(x_t | x_0): mean, variance and log-variance."""
+    nd = x_start.ndim
+    mean = extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+    variance = extract(1.0 - sched.alphas_cumprod, t, nd)
+    log_variance = extract(sched.log_one_minus_alphas_cumprod, t, nd)
+    return mean, variance, log_variance
+
+
 def q_sample(sched: DiffusionSchedule, x_start, t, noise):
     """Sample from q(x_t | x_0) with explicit noise."""
     nd = x_start.ndim
@@ -65,6 +89,18 @@ def q_sample(sched: DiffusionSchedule, x_start, t, noise):
         extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
         + extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise
     )
+
+
+def q_posterior_mean_variance(sched: DiffusionSchedule, x_start, x_t, t):
+    """q(x_{t-1} | x_t, x_0): mean, variance and clipped log-variance."""
+    nd = x_t.ndim
+    posterior_mean = (
+        extract(sched.posterior_mean_coef1, t, nd) * x_start
+        + extract(sched.posterior_mean_coef2, t, nd) * x_t
+    )
+    posterior_variance = extract(sched.posterior_variance, t, nd)
+    posterior_log_variance = extract(sched.posterior_log_variance_clipped, t, nd)
+    return posterior_mean, posterior_variance, posterior_log_variance
 
 
 def predict_xstart_from_eps(sched, x_t, t, eps):
@@ -83,6 +119,13 @@ def predict_xstart_from_xprev(sched, x_t, t, xprev):
     )
 
 
+def predict_eps_from_xstart(sched, x_t, t, pred_xstart):
+    nd = x_t.ndim
+    return (
+        extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart
+    ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd)
+
+
 def predict_xstart_from_v(sched, x_t, t, v):
     """x0 = alpha*x_t - sigma*v (v-parameterization)."""
     nd = x_t.ndim
@@ -92,12 +135,93 @@ def predict_xstart_from_v(sched, x_t, t, v):
     )
 
 
+def velocity_from_eps_xstart(sched, t, eps, x_start):
+    """v = alpha*eps - sigma*x0, the v-prediction target."""
+    nd = eps.ndim
+    return (
+        extract(sched.sqrt_alphas_cumprod, t, nd) * eps
+        - extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * x_start
+    )
+
+
 def split_model_output(model_output, var_type: ModelVarType):
     """Split a 2C-channel NHWC output into (mean part, raw variance part)."""
     if var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
         c = model_output.shape[-1] // 2
         return model_output[..., :c], model_output[..., c:]
     return model_output, None
+
+
+def model_variance(sched, var_values, x_shape_ndim, t, var_type: ModelVarType):
+    """(variance, log_variance) of p(x_{t-1} | x_t) per var_type."""
+    nd = x_shape_ndim
+    if var_type == ModelVarType.LEARNED:
+        return torch.exp(var_values), var_values
+    if var_type == ModelVarType.LEARNED_RANGE:
+        min_log = extract(sched.posterior_log_variance_clipped, t, nd)
+        max_log = extract(sched.log_betas, t, nd)
+        frac = (var_values + 1.0) / 2.0
+        model_log_variance = frac * max_log + (1.0 - frac) * min_log
+        return torch.exp(model_log_variance), model_log_variance
+    if var_type == ModelVarType.FIXED_LARGE:
+        return (extract(sched.fixed_large_variance, t, nd),
+                extract(sched.fixed_large_log_variance, t, nd))
+    if var_type == ModelVarType.FIXED_SMALL:
+        return (extract(sched.posterior_variance, t, nd),
+                extract(sched.posterior_log_variance_clipped, t, nd))
+    raise NotImplementedError(var_type)
+
+
+class PMeanVariance(NamedTuple):
+    mean: torch.Tensor
+    variance: torch.Tensor
+    log_variance: torch.Tensor
+    pred_xstart: torch.Tensor
+
+
+def p_mean_variance(sched: DiffusionSchedule, model_output, x, t, *,
+                    mean_type: ModelMeanType = ModelMeanType.EPSILON,
+                    var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+                    clip_denoised: bool = True) -> PMeanVariance:
+    """p(x_{t-1} | x_t) statistics from a model output the caller computed."""
+    mean_part, var_values = split_model_output(model_output, var_type)
+    variance, log_variance = model_variance(sched, var_values, x.ndim, t, var_type)
+
+    def process_xstart(x0):
+        return torch.clamp(x0, -1.0, 1.0) if clip_denoised else x0
+
+    if mean_type == ModelMeanType.PREVIOUS_X:
+        pred_xstart = process_xstart(predict_xstart_from_xprev(sched, x, t, mean_part))
+        mean = mean_part
+    else:
+        if mean_type == ModelMeanType.START_X:
+            x0 = mean_part
+        elif mean_type == ModelMeanType.EPSILON:
+            x0 = predict_xstart_from_eps(sched, x, t, mean_part)
+        elif mean_type == ModelMeanType.VELOCITY:
+            x0 = predict_xstart_from_v(sched, x, t, mean_part)
+        else:
+            raise NotImplementedError(mean_type)
+        pred_xstart = process_xstart(x0)
+        mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    return PMeanVariance(mean, variance, log_variance, pred_xstart)
+
+
+def condition_mean(pmv: PMeanVariance, gradient) -> PMeanVariance:
+    """Shift the posterior mean by variance * grad log p(y | x_t)."""
+    return pmv._replace(mean=pmv.mean + pmv.variance * gradient)
+
+
+def condition_score(sched: DiffusionSchedule, pmv: PMeanVariance, x, t,
+                    gradient) -> PMeanVariance:
+    """Shift eps by -sqrt(1 - alpha_bar) * grad log p(y | x_t), then re-derive
+    x0 and the posterior mean."""
+    alpha_bar = extract(sched.alphas_cumprod, t, x.ndim)
+    eps = predict_eps_from_xstart(sched, x, t, pmv.pred_xstart)
+    eps = eps - torch.sqrt(1.0 - alpha_bar) * gradient
+    pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
+    mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    return pmv._replace(mean=mean, pred_xstart=pred_xstart)
 
 
 def apply_inpainting_injection(

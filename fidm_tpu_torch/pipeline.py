@@ -2,10 +2,11 @@
 
 Counterpart of `fidm_tpu/pipeline.py`: the canonical FFHQ-256 inpainting UNet
 on the 1000-step quadratic schedule, sampled with the `ddim-100` preset
-(eta 0.9, post-step known-region injection, final blend) by default. The
-server (`serving/`, `cli/serve.py`) serves `dpm-25-sde` by default. Presets
-with feature caching (`ddim-100-deep` and the other `encoder_cache_period` >
-1 presets) get the model's (full, cached) call pair from `inpaint`.
+(eta 0.9, post-step known-region injection, final blend) by default; every
+preset of `SAMPLER_PRESETS` runs. The server (`serving/`, `cli/serve.py`)
+serves `dpm-25-sde` by default. Presets with feature caching (`ddim-100-deep`
+and the other `encoder_cache_period` > 1 presets) get the model's (full,
+cached) call pair from `inpaint`.
 """
 from __future__ import annotations
 
@@ -27,9 +28,7 @@ __all__ = [
     "create_model_and_schedule",
 ]
 
-# The JAX package's presets under the same names. The ported ones are
-# method "ddim", "dpm++2m" and "dpm++2m-sde", with or without feature caching
-# (any strength); the others raise NotImplementedError when used.
+# The JAX package's presets under the same names.
 SAMPLER_PRESETS = {
     "ddpm-1000": SamplerConfig(method="ddpm", num_steps=None, injection=True),
     "ddpm-250": SamplerConfig(method="ddpm", num_steps=250, injection=True),
@@ -52,10 +51,10 @@ SAMPLER_PRESETS = {
     "ddim-20-fast": SamplerConfig(method="ddim", num_steps=20, eta=0.9,
                                   injection=True, encoder_cache_period=2,
                                   cache_branch=1, encoder_cache_tail=4),
-    # DPM-Solver++(2M), ported
+    # DPM-Solver++(2M)
     "dpm-25": SamplerConfig(method="dpm++2m", num_steps=25, injection=True),
     "dpm-20": SamplerConfig(method="dpm++2m", num_steps=20, injection=True),
-    # its SDE variant, ported: the server's default (26 model evaluations)
+    # its SDE variant: the server's default (26 model evaluations)
     "dpm-25-sde": SamplerConfig(method="dpm++2m-sde", num_steps=25,
                                 injection=True),
     "dpm-20-fast": SamplerConfig(method="dpm++2m", num_steps=20,
@@ -178,7 +177,7 @@ class InpaintingPipeline:
                     f"{cfg.cache_branch}")
 
     def inpaint(self, gt, mask, seed: Union[int, Sequence[int]],
-                sampler: Optional[SamplerConfig] = None, *,
+                sampler: Optional[SamplerConfig] = None, *, cond_fn=None,
                 strength: Optional[float] = None, noise=None):
         """Inpaint a batch: gt [B,H,W,3] in [-1,1], mask [B,H,W,1] (1 = hole),
         as numpy arrays or tensors. Returns a [B,H,W,3] tensor on the
@@ -189,10 +188,19 @@ class InpaintingPipeline:
         with seed i). `noise` replaces it with any source of the same three
         draws (see `inpaint_sample`).
 
+        `cond_fn(x, t) -> grad log p(y | x_t)` enables classifier guidance
+        (ddim, ddpm and repaint presets). It is called with autograd on, on a
+        copy of x that requires grad, so it may take `torch.autograd.grad` of
+        a classifier; the call then runs under `torch.no_grad()`, where
+        otherwise it runs under `torch.inference_mode()`.
+
         `strength` < 1 overrides the preset's and switches to refinement
         (SDEdit): only the last round(strength * K) steps run, starting from
         `gt` noised to that level, so gt's hole must carry the content to
-        harmonize."""
+        harmonize.
+
+        With the sampler's `trajectory_every` > 0 the call returns
+        `(images, trajectory)` (see `inpaint_sample`)."""
         cfg = sampler or self.config.sampler
         if strength is not None:
             cfg = dataclasses.replace(cfg, strength=strength)
@@ -207,6 +215,8 @@ class InpaintingPipeline:
                 f"mask {tuple(mask.shape)} vs gt {tuple(gt.shape)}")
         if noise is None:
             noise = GeneratorNoise(seed, self.device)
-        with torch.inference_mode():
+        # a cond_fn may take a gradient, which inference tensors cannot give
+        with torch.no_grad() if cond_fn is not None else torch.inference_mode():
             return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
-                                  noise=noise, cache_apply=self._cache_apply(cfg))
+                                  noise=noise, cache_apply=self._cache_apply(cfg),
+                                  cond_fn=cond_fn)

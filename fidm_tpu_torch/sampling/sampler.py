@@ -1,30 +1,33 @@
-"""DDIM and DPM-Solver++(2M) inpainting samplers (PyTorch port).
+"""The inpainting and unconditional samplers (PyTorch port).
 
-Counterpart of the DDIM and `dpm++2m` / `dpm++2m-sde` branches of
-`fidm_tpu/sampling/sampler.py`: the same float64 host coefficient tables,
-copied once to the device as float32, then a Python loop over the steps. The
-loop reads per-step coefficients as device scalars and decides on the host
-which draws a step needs (from the host tables), so it never waits on the
-device. `strength` < 1 (refinement) starts from the clean image noised to the
-truncated grid's first timestep.
+Counterpart of `fidm_tpu/sampling/sampler.py`, every method: DDIM, DDPM
+(respaced as SpacedDiffusion), DPM-Solver++(2M) and its SDE variant,
+DPM-Solver++(3M), UniPC, RePaint's time-travel resampling and multistep
+consistency sampling; classifier guidance (`cond_fn`) for ddim, ddpm and
+repaint; trajectories (`trajectory_every`); refinement (`strength` < 1,
+starting from the clean image noised to the truncated grid's first
+timestep); feature caching. The same float64 host coefficient tables as the
+JAX sampler are copied once to the device as float32, then a Python loop
+runs the steps. Every branch of the loop is decided on the host from the
+tables (which draws a step needs, which history a multistep solver reads,
+whether a repaint row denoises or renoises, which steps are key steps or
+trajectory frames), so the loop never waits on the device.
 
 Noise contract. Three draws, as in the JAX sampler: the initial state, one
-draw per step index, and the injection noise keyed by the TARGET timestep of
-the injection (so the same seed and timestep give the same noise, the
-reference's ground-truth noise cache). `GeneratorNoise` makes them from
+draw per step index (per table row: repaint's renoise rows draw too), and
+the injection noise keyed by the TARGET timestep of the injection (so the
+same seed and timestep give the same noise, the reference's ground-truth
+noise cache; a level that repaint revisits gets the same injection noise).
+`sample()` takes the first two only. `GeneratorNoise` makes them from
 `torch.Generator`s seeded from the caller's integer seed, or from one seed
 per batch row (the serving determinism contract: row i equals the batch-1
-run with seed i); tests pass any object with the same three methods.
+run with seed i); tests pass any object with the same methods.
 
 Feature caching (`encoder_cache_period` > 1): the key steps come from a host
-numpy mask over the grid (`_cache_keymask`), so choosing between the full and
-the cached model call is a Python `if` that never waits on the device. Key
-steps call `full_fn` and keep its cache, the other steps call `cached_fn`
-with it (`cache_apply`); with `cache_branch=-1` they reuse the previous raw
-model output and run no model.
-
-Trajectories, guidance and the other methods are not ported and raise
-NotImplementedError.
+numpy mask over the grid (`_cache_keymask`). Key steps call `full_fn` and
+keep its cache, the other steps call `cached_fn` with it (`cache_apply`);
+with `cache_branch=-1` they reuse the previous raw model output and run no
+model.
 """
 from __future__ import annotations
 
@@ -38,8 +41,9 @@ import torch
 from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule, timestep_sequence
 
-__all__ = ["SamplerConfig", "inpaint_sample", "host_alphas_cumprod", "GeneratorNoise",
-           "nonuniform_keysteps", "keysteps_from_spec"]
+__all__ = ["SamplerConfig", "inpaint_sample", "sample", "host_alphas_cumprod",
+           "repaint_level_sequence", "GeneratorNoise", "nonuniform_keysteps",
+           "keysteps_from_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +264,340 @@ def _dpm_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.nd
     return base
 
 
+def _dpm3m_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """Per-step float64 tables for DPM-Solver++(3M), third-order multistep in
+    data-prediction form (arXiv:2211.01095; diffusers'
+    `multistep_dpm_solver_third_order_update`), the JAX package's numpy code.
+
+    With h the current log-SNR step, h0/h1 the two before it, r0 = h0/h,
+    r1 = h1/h and m0/m1/m2 the last three x0 predictions:
+        D1_0 = (m0 - m1)/r0,  D1_1 = (m1 - m2)/r1
+        D1   = D1_0 + r0/(r0+r1) * (D1_0 - D1_1),  D2 = (D1_0 - D1_1)/(r0 + r1)
+        x <- (sigma_p/sigma_t) x + alpha_p(1 - e^{-h}) m0
+             + alpha_p((e^{-h}-1)/h + 1) D1 - alpha_p((e^{-h}-1+h)/h^2 - 1/2) D2
+    Step 0 is first order, step 1 the 2M update (c2 = phi1/2, D1 = D1_0), the
+    final step to alpha_bar = 1 first order (x = m0), and with fewer than 15
+    steps the second-to-last step drops to 2M too (diffusers'
+    lower_order_second). `eta` is ignored; the injection tables are DDIM's.
+    """
+    base = _ddim_tables(sched, dataclasses.replace(cfg, eta=0.0))
+    a_t = base["sqrt_a_t"].astype(np.float64) ** 2
+    a_prev = base["sqrt_a_prev"].astype(np.float64) ** 2
+    alpha_t, sigma_t = np.sqrt(a_t), np.sqrt(1.0 - a_t)
+    alpha_p, sigma_p = np.sqrt(a_prev), np.sqrt(1.0 - a_prev)
+    with np.errstate(divide="ignore"):
+        lam_t = 0.5 * (np.log(a_t) - np.log1p(-a_t))
+        lam_p = 0.5 * (np.log(a_prev) - np.log1p(-a_prev))  # +inf at a_prev=1
+    h = lam_p - lam_t
+    h0 = np.concatenate([[np.inf], h[:-1]])
+    h1 = np.concatenate([[np.inf], h0[:-1]])
+    step_i = np.arange(len(h))
+    finite = np.isfinite(h)
+    ord3 = finite & (step_i >= 2) & np.isfinite(h0) & np.isfinite(h1)
+    if len(h) < 15:
+        ord3 &= step_i != len(h) - 2
+    ord2 = finite & (step_i >= 1) & np.isfinite(h0) & ~ord3
+    h_safe = np.where(finite, h, 1.0)
+    exp_mh = np.where(finite, np.exp(-h_safe), 0.0)
+    phi1 = alpha_p - sigma_p * alpha_t / sigma_t  # alpha_p(1-e^{-h}), finite
+    base["coef_x"] = sigma_p / sigma_t
+    base["phi1"] = phi1
+    base["c2"] = np.where(
+        ord3, alpha_p * ((exp_mh - 1.0) / h_safe + 1.0),
+        np.where(ord2, 0.5 * phi1, 0.0),
+    )
+    base["c3"] = np.where(
+        ord3, alpha_p * ((exp_mh - 1.0 + h_safe) / h_safe**2 - 0.5), 0.0
+    )
+    with np.errstate(invalid="ignore"):
+        base["inv_r0"] = np.where(ord2 | ord3, h_safe / h0, 0.0)  # 1/r0
+        base["inv_r1"] = np.where(ord3, h_safe / h1, 0.0)         # 1/r1
+        base["w"] = np.where(ord3, h0 / (h0 + h1), 0.0)     # r0/(r0+r1)
+        base["inv_r01"] = np.where(ord3, h_safe / (h0 + h1), 0.0)
+    for unused in ("dir_coef", "sigma", "noise_gate", "sqrt_a_prev"):
+        del base[unused]
+    return base
+
+
+def _unipc_b_coeffs(h: float, order: int) -> np.ndarray:
+    """UniPC's right-hand side b_k = h*phi_{k+1}(-h) * k! / B(h), k=1..order
+    (arXiv:2302.04867 eq. 14-16, data-prediction form, B(h) = e^{-h} - 1, the
+    "bh2" variant), by the expm1 recurrence phi_{k+1}(z) = (phi_k(z) - 1/k!)/z."""
+    hh = -h
+    h_phi_1 = np.expm1(hh)
+    B_h = h_phi_1  # bh2
+    b = np.empty(order)
+    h_phi_k = h_phi_1 / hh - 1.0
+    fact = 1.0
+    for i in range(1, order + 1):
+        b[i - 1] = h_phi_k * fact / B_h
+        fact *= i + 1
+        h_phi_k = h_phi_k / hh - 1.0 / fact
+    return b
+
+
+def _unipc_rhos(rks: np.ndarray, h: float, order: int,
+                corrector: bool) -> np.ndarray:
+    """Solve UniPC's Vandermonde system R rho = b in float64. rks: the
+    order-1 normalised previous-point offsets and a trailing 1.0 for the new
+    point; the predictor solves the top-left (order-1)^2 block, the
+    corrector the whole system (the low orders as diffusers' scheduler)."""
+    R = np.vstack([rks ** k for k in range(order)])
+    b = _unipc_b_coeffs(h, order)
+    if corrector:
+        if order == 1:
+            return np.array([0.5])
+        return np.linalg.solve(R, b)
+    if order == 2:
+        return np.array([0.5])
+    return np.linalg.solve(R[:-1, :-1], b[:-1])
+
+
+def _unipc_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """Per-step float64 tables for UniPC (arXiv:2302.04867), data-prediction
+    form, the JAX package's numpy code.
+
+    Step i makes one model evaluation at (x_i, t_i), its x0 prediction
+    m_new, then
+      x_corr = c_coef_x*last_x + c_coef_m0*hist0
+               + sum_j c_c[j]*(hist_j - hist0) + c_new*(m_new - hist0)
+      x_next = p_coef_x*x_corr + p_coef_m0*m_new + sum_j p_c[j]*(hist_j - m_new)
+    (the corrector UniC from step 1 on, `c_on`; the predictor UniP). The
+    predictor's order is min(unipc_order, i+1, K-i); the corrector at step i
+    takes the order of the predictor that made x_i.
+    """
+    order = int(cfg.unipc_order)
+    if not 1 <= order <= 3:
+        raise ValueError(f"unipc_order must be 1, 2, or 3, got {order}")
+    base = _ddim_tables(sched, dataclasses.replace(cfg, eta=0.0))
+    a_t = base["sqrt_a_t"].astype(np.float64) ** 2
+    a_prev = base["sqrt_a_prev"].astype(np.float64) ** 2
+    alpha_t, sigma_t = np.sqrt(a_t), np.sqrt(1.0 - a_t)
+    alpha_p, sigma_p = np.sqrt(a_prev), np.sqrt(1.0 - a_prev)
+    with np.errstate(divide="ignore"):
+        lam = 0.5 * (np.log(a_t) - np.log1p(-a_t))
+        lam_p = 0.5 * (np.log(a_prev) - np.log1p(-a_prev))  # +inf at a_prev=1
+    K = len(lam)
+    D = max(order - 1, 1)  # history depth consumed by the predictor
+    p_c = np.zeros((K, D))
+    c_c = np.zeros((K, D))
+    c_new = np.zeros(K)
+    c_on = np.zeros(K)
+    c_coef_x = np.zeros(K)
+    c_coef_m0 = np.zeros(K)
+    p_order = np.zeros(K, dtype=np.int64)
+    for i in range(K):
+        p_order[i] = min(order, i + 1, K - i)
+    # predictor coefficients, step i -> i+1 (h may be inf on the last step)
+    h = lam_p - lam
+    finite = np.isfinite(h)
+    h_safe = np.where(finite, h, 1.0)
+    exp_mh = np.where(finite, np.exp(-h_safe), 0.0)
+    p_coef_x = np.where(finite, sigma_p / sigma_t, 0.0)
+    p_coef_m0 = alpha_p * (1.0 - exp_mh)
+    B_h = exp_mh - 1.0  # bh2: B(hh) = expm1(hh), hh = -h
+    for i in range(K):
+        p = int(p_order[i])
+        if p < 2 or not finite[i]:
+            continue
+        rks = np.array([(lam[i - j] - lam[i]) / h[i] for j in range(1, p)]
+                       + [1.0])
+        rhos = _unipc_rhos(rks, h[i], p, corrector=False)
+        for j in range(p - 1):
+            p_c[i, j] = -alpha_p[i] * B_h[i] * rhos[j] / rks[j]
+    # corrector at step i rebuilds the sample at t_i over [t_{i-1}, t_i]
+    if cfg.unipc_corrector:
+        for i in range(1, K):
+            co = int(p_order[i - 1])  # order of the predictor that made x_i
+            h_c = lam[i] - lam[i - 1]
+            rks = np.array(
+                [(lam[i - 1 - j] - lam[i - 1]) / h_c for j in range(1, co)]
+                + [1.0])
+            rhos = _unipc_rhos(rks, h_c, co, corrector=True)
+            c_on[i] = 1.0
+            c_coef_x[i] = sigma_t[i] / sigma_t[i - 1]
+            c_coef_m0[i] = alpha_t[i] * -np.expm1(-h_c)
+            B_hc = np.expm1(-h_c)
+            for j in range(co - 1):
+                c_c[i, j] = -alpha_t[i] * B_hc * rhos[j] / rks[j]
+            c_new[i] = -alpha_t[i] * B_hc * rhos[co - 1]
+    base["p_coef_x"] = p_coef_x
+    base["p_coef_m0"] = p_coef_m0
+    base["c_coef_x"] = c_coef_x
+    base["c_coef_m0"] = c_coef_m0
+    base["c_new"] = c_new
+    base["c_on"] = c_on
+    for j in range(D):
+        base[f"p_c{j}"] = p_c[:, j]
+        base[f"c_c{j}"] = c_c[:, j]
+    for unused in ("dir_coef", "sigma", "noise_gate", "sqrt_a_prev"):
+        del base[unused]
+    return base
+
+
+def _ddpm_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """Per-step float64 tables for the ancestral loop, respaced when
+    num_steps < T (SpacedDiffusion: the retained steps define a chain with
+    beta'_k = 1 - acp[t_k]/acp[t_{k-1}], whose posterior is recomputed).
+    Post-injection lands on the previous retained level."""
+    T = sched.num_timesteps
+    acp = host_alphas_cumprod(sched)
+    seq = _respaced_seq(sched, cfg, acp)
+
+    a_cur = acp[seq]
+    a_prev = np.append(acp[seq[1:]], 1.0)  # previous retained level
+    betas_r = 1.0 - a_cur / a_prev
+    post_var = betas_r * (1.0 - a_prev) / (1.0 - a_cur)
+    # the log-variance clipped as the reference clips it: the step that
+    # lands at x0 takes the next step's value in place of log(0)
+    post_var_for_log = post_var.copy()
+    if len(post_var_for_log) > 1:
+        post_var_for_log[-1] = post_var_for_log[-2]
+    post_logvar = np.log(np.maximum(post_var_for_log, 1e-20))
+    a_inj = a_prev
+    return {
+        "post_coef1": betas_r * np.sqrt(a_prev) / (1.0 - a_cur),
+        "post_coef2": (1.0 - a_prev) * np.sqrt(1.0 - betas_r) / (1.0 - a_cur),
+        "post_logvar": post_logvar,
+        "log_beta": np.log(np.maximum(betas_r, 1e-20)),
+        "sqrt_a_t": np.sqrt(a_cur),
+        "sqrt_one_minus_a_t": np.sqrt(1.0 - a_cur),
+        "t": seq.astype(np.int32),
+        # no noise on the transition that lands at x0 (a_prev == 1), keyed
+        # to the target level: under "trailing" spacing the last retained
+        # step has t > 0 and is still the terminal transition
+        "noise_gate": (a_prev < 1.0).astype(np.float64),
+        "inject_gate": (seq > 0).astype(np.float64)
+        * _injection_gate(seq, cfg.injection_schedule, T),
+        "inject_sqrt_a": np.sqrt(a_inj),
+        "inject_sqrt_1ma": np.sqrt(1 - a_inj),
+        "inject_t": np.append(seq[1:], 0).astype(np.int32),
+        "pre_inject_gate": _injection_gate(seq, cfg.injection_schedule, T),
+        "pre_inject_sqrt_a": np.sqrt(acp[seq]),
+        "pre_inject_sqrt_1ma": np.sqrt(1 - acp[seq]),
+        "step": np.arange(len(seq), dtype=np.int32),
+    }
+
+
+def repaint_level_sequence(K: int, jump_length: int,
+                           jump_n_sample: int) -> np.ndarray:
+    """RePaint's time-travel visit order over K retained levels (0 the
+    noisiest, K-1 the least noisy; arXiv:2201.09865 §4.2): denoising moves
+    +1; at every `jump_length`-th level the walk goes back `jump_length`
+    levels one at a time and denoises again, `jump_n_sample - 1` extra
+    times per jump site. `jump_n_sample <= 1` or `jump_length <= 0` gives
+    `arange(K)` (plain respaced DDPM)."""
+    if jump_length <= 0 or jump_n_sample <= 1 or K <= 1:
+        return np.arange(K)
+    jumps = {k: jump_n_sample - 1 for k in range(jump_length, K, jump_length)}
+    levels = [0]
+    k = 0
+    while k < K - 1:
+        k += 1
+        levels.append(k)
+        if jumps.get(k, 0) > 0:
+            jumps[k] -= 1
+            for _ in range(jump_length):
+                k -= 1
+                levels.append(k)
+    return np.asarray(levels, dtype=np.int64)
+
+
+def _repaint_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """Per-transition tables for RePaint: each row is a denoise step (row L
+    of `_ddpm_tables`, the L -> L+1 ancestral step, reused verbatim) or a
+    renoise step (one forward q step back to the noisier level:
+    x <- sqrt(acp_tgt/acp_cur) x + sqrt(1 - acp_tgt/acp_cur) z), after which
+    post-injection pins the known region at the target level. With
+    jump_n_sample <= 1 the tables are `_ddpm_tables`'."""
+    T = sched.num_timesteps
+    acp = host_alphas_cumprod(sched)
+    seq = _respaced_seq(sched, cfg, acp)
+    K = len(seq)
+    base = _ddpm_tables(sched, cfg)
+    levels = repaint_level_sequence(K, cfg.jump_length, cfg.jump_n_sample)
+    # transitions between consecutive visited levels, plus the final denoise
+    # from level K-1 to x0 (pseudo-level K)
+    cur = np.append(levels[:-1], K - 1)
+    nxt = np.append(levels[1:], K)
+    down = nxt == cur + 1
+    up = ~down
+    if not (nxt[up] == cur[up] - 1).all():
+        raise AssertionError("walk must move one level at a time")
+    N = len(cur)
+
+    rows = {}
+    for k in ("t", "pre_inject_gate", "pre_inject_sqrt_a", "pre_inject_sqrt_1ma"):
+        rows[k] = np.asarray(base[k])[cur]
+    # denoise-only fields, zero on renoise rows
+    for k in ("post_coef1", "post_coef2", "post_logvar", "log_beta",
+              "sqrt_a_t", "sqrt_one_minus_a_t", "noise_gate",
+              "inject_gate", "inject_sqrt_a", "inject_sqrt_1ma", "inject_t"):
+        v = np.asarray(base[k])
+        out = np.zeros(N, dtype=v.dtype)
+        out[down] = v[cur[down]]
+        rows[k] = out
+    a_cur = acp[seq[cur[up]]]
+    a_tgt = acp[seq[nxt[up]]]
+    ratio = a_tgt / a_cur
+    keep_ = np.zeros(N)
+    std_ = np.zeros(N)
+    keep_[up] = np.sqrt(ratio)
+    std_[up] = np.sqrt(1.0 - ratio)
+    rows["renoise_keep"] = keep_
+    rows["renoise_std"] = std_
+    # post-injection after a renoise pins the known region at the target
+    # level (always t > 0 there)
+    t_tgt = seq[nxt[up]]
+    rows["inject_gate"][up] = _injection_gate(t_tgt, cfg.injection_schedule, T)
+    rows["inject_sqrt_a"][up] = np.sqrt(a_tgt)
+    rows["inject_sqrt_1ma"][up] = np.sqrt(1.0 - a_tgt)
+    rows["inject_t"][up] = t_tgt
+    rows["is_denoise"] = down.astype(np.int32)
+    rows["step"] = np.arange(N, dtype=np.int32)
+    return rows
+
+
+def _consistency_grid(num_timesteps: int, steps: int) -> np.ndarray:
+    """`steps`+1 descending timestep boundaries T-1 -> 0 (a copy of the JAX
+    package's `distill.consistency.consistency_grid`)."""
+    return np.round(np.linspace(num_timesteps - 1, 0, steps + 1)).astype(np.int32)
+
+
+def _consistency_seq(sched: DiffusionSchedule, cfg: SamplerConfig) -> tuple:
+    """The K-evaluation grid of method="consistency": the first K of the K+1
+    consistency-grid boundaries (the last, 0, is only a renoise target), with
+    rounding duplicates dropped; an explicit cfg.timesteps wins."""
+    if cfg.timesteps is not None:
+        return cfg.timesteps
+    K = cfg.num_steps or sched.num_timesteps
+    seq = _consistency_grid(sched.num_timesteps, K)[:K]
+    seq = seq[np.concatenate(([True], np.diff(seq) < 0))]
+    return tuple(int(t) for t in seq)
+
+
+def _consistency_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """Multistep consistency sampling runs on the DDIM tables of its own grid
+    (`_consistency_seq`): sqrt_a_prev scales the x0 prediction and
+    inject_sqrt_1ma, 0 on the last step, is the renoise std."""
+    return _ddim_tables(sched, dataclasses.replace(
+        cfg, eta=0.0, timesteps=_consistency_seq(sched, cfg)))
+
+
+_METHOD_TABLES = {"ddim": _ddim_tables, "ddpm": _ddpm_tables, "dpm++2m": _dpm_tables,
+                  "dpm++2m-sde": _dpm_tables, "dpm++3m": _dpm3m_tables,
+                  "unipc": _unipc_tables, "repaint": _repaint_tables,
+                  "consistency": _consistency_tables}
+
+
+def _method_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, np.ndarray]:
+    """The host tables cfg.method runs on, one row per loop step (repaint:
+    the rows with `is_denoise` evaluate the model, the others renoise)."""
+    if cfg.method not in _METHOD_TABLES:
+        raise ValueError(f"unknown method: {cfg.method}")
+    return _METHOD_TABLES[cfg.method](sched, cfg)
+
+
 def _to_device_xs(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """The tables as int32 / float32 tensors on `device`. To CUDA by pinned,
     non-blocking copies: a blocking copy would wait for every kernel already
@@ -272,25 +610,83 @@ def _to_device_xs(tables: Dict[str, np.ndarray], device) -> Dict[str, torch.Tens
     return xs
 
 
+def _x0_from_raw(raw, x, s, cfg: SamplerConfig):
+    """The x0 prediction from the model's raw 3-channel output per mean_type."""
+    if cfg.mean_type == gd.ModelMeanType.EPSILON:
+        return (x - s["sqrt_one_minus_a_t"] * raw) / s["sqrt_a_t"]
+    if cfg.mean_type == gd.ModelMeanType.VELOCITY:
+        return s["sqrt_a_t"] * x - s["sqrt_one_minus_a_t"] * raw
+    if cfg.mean_type == gd.ModelMeanType.START_X:
+        return raw
+    if cfg.mean_type == gd.ModelMeanType.PREVIOUS_X:
+        return s["xprev_inv_c1"] * raw - s["xprev_c2c1"] * x
+    raise NotImplementedError(cfg.mean_type)
+
+
 def _x0_eps_from_raw(raw, x, s, cfg: SamplerConfig):
     """(pred_x0, eps) from the model's raw 3-channel output per mean_type.
 
     EPSILON keeps the reference behavior: the DDIM direction term uses the
     raw eps, not an eps re-derived from the clipped x0.
     """
+    pred_x0 = _x0_from_raw(raw, x, s, cfg)
     if cfg.mean_type == gd.ModelMeanType.EPSILON:
-        pred_x0 = (x - s["sqrt_one_minus_a_t"] * raw) / s["sqrt_a_t"]
         return pred_x0, raw
-    if cfg.mean_type == gd.ModelMeanType.VELOCITY:
-        pred_x0 = s["sqrt_a_t"] * x - s["sqrt_one_minus_a_t"] * raw
-    elif cfg.mean_type == gd.ModelMeanType.START_X:
-        pred_x0 = raw
-    elif cfg.mean_type == gd.ModelMeanType.PREVIOUS_X:
-        pred_x0 = s["xprev_inv_c1"] * raw - s["xprev_c2c1"] * x
-    else:
-        raise NotImplementedError(cfg.mean_type)
+    return pred_x0, (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
+
+
+def _clipped_x0(raw, x, s, cfg: SamplerConfig):
+    pred_x0 = _x0_from_raw(raw, x, s, cfg)
+    return torch.clamp(pred_x0, -1.0, 1.0) if cfg.clip_denoised else pred_x0
+
+
+def _ddpm_mean_logvar(out, x, s, cfg: SamplerConfig):
+    """Posterior mean and log-variance of one ancestral step from the model
+    output, on the (possibly respaced) per-step tables: the in-loop
+    `p_mean_variance`."""
+    raw, var_values = gd.split_model_output(out, cfg.var_type)
+    if cfg.mean_type == gd.ModelMeanType.PREVIOUS_X:
+        return raw, _ddpm_logvar(var_values, x, s, cfg)  # the model predicts x_{t-1}
+    mean = s["post_coef1"] * _clipped_x0(raw, x, s, cfg) + s["post_coef2"] * x
+    return mean, _ddpm_logvar(var_values, x, s, cfg)
+
+
+def _ddpm_logvar(var_values, x, s, cfg: SamplerConfig):
+    if cfg.var_type == gd.ModelVarType.LEARNED_RANGE:
+        frac = (var_values + 1.0) / 2.0
+        return frac * s["log_beta"] + (1.0 - frac) * s["post_logvar"]
+    if cfg.var_type == gd.ModelVarType.LEARNED:
+        return var_values
+    if cfg.var_type == gd.ModelVarType.FIXED_LARGE:
+        # beta_t (the reference's t=0 entry differs, under a zero noise gate)
+        return s["log_beta"].expand(x.shape)
+    return s["post_logvar"].expand(x.shape)  # FIXED_SMALL
+
+
+def _cond_grad(cond_fn, x, s):
+    """cond_fn(x, t[B]) -> grad log p(y | x_t), called with autograd on: on a
+    leaf copy of x that requires grad, so a cond_fn may differentiate a
+    classifier with `torch.autograd.grad`. Not under `torch.inference_mode()`,
+    whose tensors cannot be saved for backward."""
+    with torch.enable_grad():
+        grad = cond_fn(x.detach().requires_grad_(True), s["t"].expand(x.shape[0]))
+    return grad.detach()
+
+
+def _guide_eps(cond_fn, x, s, pred_x0):
+    """`condition_score` in the loop: eps from the (clipped) x0 prediction,
+    shifted by -sqrt(1 - alpha_bar) * grad, and x0 re-derived (no re-clip)."""
+    grad = _cond_grad(cond_fn, x, s)
     eps = (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
+    eps = eps - s["sqrt_one_minus_a_t"] * grad
+    pred_x0 = (x - s["sqrt_one_minus_a_t"] * eps) / s["sqrt_a_t"]
     return pred_x0, eps
+
+
+def _guide_mean(cond_fn, x, s, mean, logvar):
+    """`condition_mean` in the loop: the posterior mean shifted by
+    variance * grad."""
+    return mean + torch.exp(logvar) * _cond_grad(cond_fn, x, s)
 
 
 def _maybe_pre_inject(x, s, gt, keep, noise):
@@ -377,40 +773,225 @@ class GeneratorNoise:
         return self._draw(2, timestep, shape)
 
 
-_PORTED_METHODS = ("ddim", "dpm++2m", "dpm++2m-sde")
+_UNGUIDED = ("dpm++2m", "dpm++2m-sde", "dpm++3m", "unipc", "consistency")
 
 
-def _check_ported(cfg: SamplerConfig, cond_fn):
-    if cond_fn is not None and cfg.method in ("dpm++2m", "dpm++2m-sde"):
+def _check_config(cfg: SamplerConfig, cond_fn):
+    if cond_fn is not None and cfg.method in _UNGUIDED:
         raise ValueError(
             "classifier guidance (cond_fn) is defined for ddim/ddpm/repaint; "
-            "the DPM-Solver++ updates have no reference-guided form")
-    if cfg.method not in _PORTED_METHODS:
-        raise NotImplementedError(f"sampler method {cfg.method!r} is not ported yet")
+            "the DPM-Solver++/UniPC/consistency updates have no "
+            "reference-guided form")
     if cfg.cache_keysteps is not None and cfg.encoder_cache_period <= 1:
         raise ValueError(
             "cache_keysteps requires encoder_cache_period > 1 (the period "
             "enables caching; the explicit grid then replaces the gate)")
-    if cfg.trajectory_every:
-        raise NotImplementedError("trajectory_every is not ported yet")
-    if cond_fn is not None:
-        raise NotImplementedError("classifier guidance (cond_fn) is not ported yet")
     if cfg.injection_point not in ("post", "pre"):
         raise ValueError(f"unknown injection_point: {cfg.injection_point}")
+    if cfg.method == "repaint" and cfg.encoder_cache_period > 1:
+        raise ValueError("encoder_cache_period is not supported with method='repaint'")
 
 
-def _initial_state(sched: DiffusionSchedule, cfg: SamplerConfig, first_t: int,
-                   gt: torch.Tensor, x_init: Optional[torch.Tensor], noise) -> torch.Tensor:
-    """The loop's starting state. With strength < 1 the clean image (x_init,
-    else gt) q-sampled to the truncated grid's first timestep (SDEdit);
-    otherwise x_init, else a standard normal draw."""
+def _initial_state(sched: DiffusionSchedule, cfg: SamplerConfig, first_t: int, shape,
+                   clean: Optional[torch.Tensor], x_init: Optional[torch.Tensor],
+                   noise) -> torch.Tensor:
+    """The loop's starting state. With strength < 1 the clean image q-sampled
+    to `first_t`, the truncated grid's first timestep (SDEdit), defined for
+    the methods whose grids truncate; otherwise x_init, else a standard
+    normal draw."""
     if cfg.strength < 1.0:
-        clean = x_init if x_init is not None else gt
+        if cfg.method in ("repaint", "consistency"):
+            raise ValueError(
+                f"strength < 1 is defined for ddim/ddpm/dpm methods, not "
+                f"{cfg.method!r}")
         a0 = float(host_alphas_cumprod(sched)[first_t])
         return (math.sqrt(a0) * clean.to(torch.float32)
-                + math.sqrt(1.0 - a0) * noise.init(gt.shape))
-    x = x_init if x_init is not None else noise.init(gt.shape)
+                + math.sqrt(1.0 - a0) * noise.init(shape))
+    x = x_init if x_init is not None else noise.init(shape)
     return x.to(torch.float32)
+
+
+def _traj_recorder(cfg: SamplerConfig, K: int, x: torch.Tensor):
+    """(frames, record) for cfg.trajectory_every = k > 0: one preallocated
+    float32 [N, *x.shape] buffer, N = (K-1)//k + 1, and `record(frames, x,
+    i)`, which copies x into slot i // k after steps k-1, 2k-1, ... and the
+    last (a host decision). With trajectory off, (None, a no-op)."""
+    k = cfg.trajectory_every
+    if k <= 0:
+        return None, lambda frames, x, i: None
+    if K <= 0:
+        raise ValueError("trajectory_every > 0 needs at least one step")
+    frames = torch.zeros(((K - 1) // k + 1,) + tuple(x.shape), dtype=torch.float32,
+                         device=x.device)
+
+    def record(frames, x, i):
+        if (i + 1) % k == 0 or i == K - 1:
+            frames[i // k].copy_(x)
+
+    return frames, record
+
+
+def _draw_step(noise, tables, gate: str, i: int, x):
+    """noise.step(i) for step i, or None where the host gate `gate` is 0 and
+    the draw would be multiplied by 0."""
+    return noise.step(i, x.shape) if tables[gate][i] > 0 else None
+
+
+def _shared_update(cfg: SamplerConfig, tables, noise, cond_fn, extract_raw):
+    """(aux0, update) for the methods whose step is the same in
+    `inpaint_sample` and `sample`: all but DDIM, whose eps differs between
+    the two (each entry point keeps its own). `tables` are the method's host
+    tables; `extract_raw(out)` is the one caller-specific part.
+    `update(x, aux, s, out, i)` -> (x, aux); the repaint update gets
+    out=None on its renoise rows, which run no model."""
+    if cfg.method in ("ddpm", "repaint"):
+        def update(x, aux, s, out, i):
+            if out is None:  # a repaint renoise row
+                return s["renoise_keep"] * x + s["renoise_std"] * noise.step(i, x.shape), aux
+            mean, logvar = _ddpm_mean_logvar(out, x, s, cfg)
+            if cond_fn is not None:
+                mean = _guide_mean(cond_fn, x, s, mean, logvar)
+            z = _draw_step(noise, tables, "noise_gate", i, x)
+            if z is None:
+                return mean, aux
+            return mean + s["noise_gate"] * torch.exp(0.5 * logvar) * z, aux
+
+        return None, update
+
+    if cfg.method in ("dpm++2m", "dpm++2m-sde"):
+        sde = cfg.method == "dpm++2m-sde"
+
+        def update(x, prev_x0, s, out, i):
+            pred_x0 = _clipped_x0(extract_raw(out), x, s, cfg)
+            # the previous x0 prediction is read only where corr != 0 (never
+            # at step 0)
+            d_hat = (pred_x0 if tables["corr"][i] == 0 else
+                     (1.0 + s["corr"]) * pred_x0 - s["corr"] * prev_x0)
+            x = s["coef_x"] * x + s["coef_D"] * d_hat
+            if sde and tables["sde_noise"][i] > 0:
+                x = x + s["sde_noise"] * noise.step(i, x.shape)
+            return x, pred_x0
+
+        return None, update
+
+    if cfg.method == "dpm++3m":
+        def update(x, aux, s, out, i):
+            m1, m2 = aux
+            pred_x0 = _clipped_x0(extract_raw(out), x, s, cfg)
+            x_new = s["coef_x"] * x + s["phi1"] * pred_x0
+            # the host tables say which history the step reads: none at
+            # first order, m1 at second, m1 and m2 at third
+            if tables["inv_r1"][i] != 0:
+                d1_0 = s["inv_r0"] * (pred_x0 - m1)
+                d1_1 = s["inv_r1"] * (m1 - m2)
+                d1 = d1_0 + s["w"] * (d1_0 - d1_1)
+                d2 = s["inv_r01"] * (d1_0 - d1_1)
+                x_new = x_new + s["c2"] * d1 - s["c3"] * d2
+            elif tables["inv_r0"][i] != 0:
+                x_new = x_new + s["c2"] * (s["inv_r0"] * (pred_x0 - m1))
+            return x_new, (pred_x0, m1)
+
+        return (None, None), update
+
+    if cfg.method == "unipc":
+        depth = max(int(cfg.unipc_order), 1)   # history entries carried
+        width = max(int(cfg.unipc_order) - 1, 1)  # coefficient slots
+
+        def update(x, aux, s, out, i):
+            last_x, hist = aux
+            m_new = _clipped_x0(extract_raw(out), x, s, cfg)
+            # UniC: rebuild this level's sample from last_x with the
+            # evaluation just made (off at step 0). A history entry is read
+            # only where its host coefficient is nonzero, so the entries not
+            # yet filled (None) are never read
+            if tables["c_on"][i] > 0:
+                x_c = (s["c_coef_x"] * last_x + s["c_coef_m0"] * hist[0]
+                       + s["c_new"] * (m_new - hist[0]))
+                for j in range(min(width, depth - 1)):
+                    if tables[f"c_c{j}"][i] != 0:
+                        x_c = x_c + s[f"c_c{j}"] * (hist[j + 1] - hist[0])
+                x = x + s["c_on"] * (x_c - x)
+            # UniP: step the corrected sample to the next level
+            x_next = s["p_coef_x"] * x + s["p_coef_m0"] * m_new
+            for j in range(width):
+                if tables[f"p_c{j}"][i] != 0:
+                    x_next = x_next + s[f"p_c{j}"] * (hist[j] - m_new)
+            return x_next, (x, (m_new,) + hist[:-1])
+
+        # (the sample each predictor steps from, x0 predictions newest first)
+        return (None, (None,) * depth), update
+
+    if cfg.method == "consistency":
+        # multistep consistency sampling (Song et al. 2023, Alg. 1, VP form):
+        # each step maps to x0 under the student's mean type, then renoises
+        # to the next level of its grid, never uniform respacing
+        def update(x, aux, s, out, i):
+            x_new = s["sqrt_a_prev"] * _clipped_x0(extract_raw(out), x, s, cfg)
+            z = _draw_step(noise, tables, "inject_sqrt_1ma", i, x)
+            return (x_new if z is None else x_new + s["inject_sqrt_1ma"] * z), aux
+
+        return None, update
+
+    raise ValueError(f"unknown method: {cfg.method}")
+
+
+def _model_caller(cfg: SamplerConfig, K: int, apply_fn: Callable,
+                  cache_apply: Optional[Tuple[Callable, Callable]]):
+    """call(x, t, i) -> the model output at step i. With feature caching the
+    key steps come from a host mask (`_cache_keymask`), so choosing between
+    the full and the cached call never waits on the device: key steps call
+    `full_fn` and keep its cache, the others `cached_fn` with it; with
+    `cache_branch=-1` they reuse the previous raw output and run no model.
+    Step 0 is always a key step."""
+    if cfg.encoder_cache_period <= 1:
+        return lambda x, t, i: apply_fn(x, t)
+    is_key = _cache_keymask(cfg, K)
+    held = {}
+    if cfg.cache_branch == -1:
+        def call(x, t, i):
+            if is_key[i]:
+                held["out"] = apply_fn(x, t)
+            return held["out"]
+        return call
+    if cache_apply is None:
+        raise ValueError(
+            "cfg.encoder_cache_period > 1 requires cache_apply=(full_fn, cached_fn)")
+    full_fn, cached_fn = cache_apply
+
+    def call(x, t, i):
+        if is_key[i]:
+            out, held["cache"] = full_fn(x, t)
+            return out
+        return cached_fn(x, t, held["cache"])
+
+    return call
+
+
+def _run(cfg, tables, x, aux, update, call, before=None, after=None):
+    """The loop: per step, `before` (pre-injection), the model call (skipped
+    on repaint's renoise rows), the method's update, `after`
+    (post-injection), the trajectory frame. Every branch is a host decision;
+    the loop never reads a device value back. Returns (x, frames or None)."""
+    xs = _to_device_xs(tables, x.device)
+    K = len(tables["t"])
+    runs_model = tables.get("is_denoise", np.ones(K, np.int32))
+    frames, record = _traj_recorder(cfg, K, x)
+    B = x.shape[0]
+    for i in range(K):
+        s = {k: v[i] for k, v in xs.items()}
+        if before is not None:
+            x = before(x, s, i)
+        out = call(x, s["t"].expand(B), i) if runs_model[i] else None
+        x, aux = update(x, aux, s, out, i)
+        if after is not None:
+            x = after(x, s, i)
+        record(frames, x, i)
+    return x, frames
+
+
+def _result(x, frames, cfg: SamplerConfig):
+    x = _finalize_output(x, cfg)
+    return (x, frames) if cfg.trajectory_every > 0 else x
 
 
 def inpaint_sample(
@@ -424,8 +1005,8 @@ def inpaint_sample(
     x_init: Optional[torch.Tensor] = None,
     cache_apply: Optional[Tuple[Callable, Callable]] = None,
     cond_fn: Optional[Callable] = None,
-) -> torch.Tensor:
-    """Run the DDIM or DPM-Solver++(2M) inpainting reverse process.
+):
+    """Run the inpainting reverse process.
 
     Args:
       apply_fn: (x, t[B], masked_image, mask) -> model output (NHWC, f32).
@@ -439,74 +1020,130 @@ def inpaint_sample(
         != -1, the pair (full_fn, cached_fn): full_fn(x, t, masked_image,
         mask) -> (out, cache) on key steps, cached_fn(x, t, masked_image,
         mask, cache) -> out on the others.
+      cond_fn: optional classifier guidance, (x, t[B]) -> grad log p(y|x_t),
+        for methods ddim, ddpm and repaint: DDPM shifts the posterior mean by
+        variance * grad (`condition_mean`), DDIM shifts eps by
+        -sqrt(1 - alpha_bar) * grad and re-derives x0 (`condition_score`).
+        It is called with autograd enabled on a copy of x that requires
+        grad; run the sampler under `torch.no_grad()`, not
+        `torch.inference_mode()`, when it takes a gradient.
 
     Returns:
       Inpainted images [B,H,W,3]; with cfg.final_blend the known pixels are
-      exactly `gt`.
+      exactly `gt`. With cfg.trajectory_every = k > 0, `(images,
+      trajectory)`: trajectory is [N,B,H,W,3] float32, the state after steps
+      k-1, 2k-1, ... and the last, before the final blend.
     """
-    _check_ported(cfg, cond_fn)
-    B = gt.shape[0]
+    _check_config(cfg, cond_fn)
     keep = (1.0 - mask).to(gt.dtype)
     masked_image = gt * keep
-    ddim = cfg.method == "ddim"
-    tables = _ddim_tables(sched, cfg) if ddim else _dpm_tables(sched, cfg)
-    xs = _to_device_xs(tables, gt.device)
-    pre = cfg.injection and cfg.injection_point == "pre"
-    post = cfg.injection and cfg.injection_point == "post"
+    tables = _method_tables(sched, cfg)
+    x = _initial_state(sched, cfg, int(tables["t"][0]), gt.shape,
+                       x_init if x_init is not None else gt, x_init, noise)
+    if cfg.method == "ddim":
+        aux0 = None
 
-    K = len(tables["t"])
-    # key steps by a host mask (after the strength truncation); step 0 is
-    # always one, so `out` and `cache` are set before a cached step reads them
-    is_key = _cache_keymask(cfg, K) if cfg.encoder_cache_period > 1 else None
-    full_fn = cached_fn = cache = None
-    if is_key is not None and cfg.cache_branch != -1:
-        if cache_apply is None:
-            raise ValueError(
-                "cfg.encoder_cache_period > 1 requires cache_apply=(full_fn, cached_fn)")
-        full_fn, cached_fn = cache_apply
-
-    x = _initial_state(sched, cfg, int(tables["t"][0]), gt, x_init, noise)
-    # dpm: the previous x0 prediction, read only where corr > 0 (never at
-    # step 0)
-    prev_x0 = None if ddim else torch.zeros_like(x)
-    for i in range(K):
-        s = {k: v[i] for k, v in xs.items()}
-        # a step whose host gate is 0 adds exactly nothing; skip its draw
-        if pre and tables["pre_inject_gate"][i] > 0:
-            x = _maybe_pre_inject(x, s, gt, keep,
-                                  noise.inject(int(tables["t"][i]), gt.shape))
-        t = s["t"].expand(B)
-        if full_fn is None:
-            # no feature cache: every step, or (output reuse) the key steps
-            # run the model; the others keep the previous raw output
-            if is_key is None or is_key[i]:
-                out = apply_fn(x, t, masked_image, mask)
-        elif is_key[i]:
-            out, cache = full_fn(x, t, masked_image, mask)
-        else:
-            out = cached_fn(x, t, masked_image, mask, cache)
-        raw = out[..., :3]  # learned variance is unused by DDIM and DPM-Solver
-        pred_x0, eps = _x0_eps_from_raw(raw, x, s, cfg)
-        if ddim:
+        def update(x, aux, s, out, i):
+            # learned variance is unused by DDIM; the raw eps drives the
+            # direction term (eval-script semantics)
+            pred_x0, eps = _x0_eps_from_raw(out[..., :3], x, s, cfg)
             if cfg.clip_denoised:
                 pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
                 if cfg.mean_type != gd.ModelMeanType.EPSILON:
                     eps = (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
+            if cond_fn is not None:
+                pred_x0, eps = _guide_eps(cond_fn, x, s, pred_x0)
             x = s["sqrt_a_prev"] * pred_x0 + s["dir_coef"] * eps
             if tables["noise_gate"][i] > 0:
                 x = x + s["noise_gate"] * s["sigma"] * noise.step(i, x.shape)
-        else:
-            if cfg.clip_denoised:
-                pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
-            d_hat = (1.0 + s["corr"]) * pred_x0 - s["corr"] * prev_x0
-            x = s["coef_x"] * x + s["coef_D"] * d_hat
-            if "sde_noise" in tables and tables["sde_noise"][i] > 0:
-                x = x + s["sde_noise"] * noise.step(i, x.shape)
-            prev_x0 = pred_x0
-        if post and tables["inject_gate"][i] > 0:
-            x = _maybe_post_inject(x, s, gt, keep,
-                                   noise.inject(int(tables["inject_t"][i]), gt.shape))
+            return x, aux
+    else:
+        aux0, update = _shared_update(cfg, tables, noise, cond_fn,
+                                      extract_raw=lambda out: out[..., :3])
 
+    full = None
+    if cache_apply is not None:
+        full_fn, cached_fn = cache_apply
+        full = (lambda x, t: full_fn(x, t, masked_image, mask),
+                lambda x, t, cache: cached_fn(x, t, masked_image, mask, cache))
+    call = _model_caller(cfg, len(tables["t"]),
+                         lambda x, t: apply_fn(x, t, masked_image, mask), full)
+
+    # a step whose host gate is 0 adds exactly nothing; its draw is skipped.
+    # Injection noise is keyed by timestep: a level that repaint revisits
+    # gets the same injection noise again (the reference's noise cache)
+    before = after = None
+    if cfg.injection and cfg.injection_point == "pre":
+        def before(x, s, i):
+            if tables["pre_inject_gate"][i] <= 0:
+                return x
+            return _maybe_pre_inject(x, s, gt, keep,
+                                     noise.inject(int(tables["t"][i]), gt.shape))
+    if cfg.injection and cfg.injection_point == "post":
+        def after(x, s, i):
+            if tables["inject_gate"][i] <= 0:
+                return x
+            return _maybe_post_inject(x, s, gt, keep,
+                                      noise.inject(int(tables["inject_t"][i]), gt.shape))
+
+    x, frames = _run(cfg, tables, x, aux0, update, call, before, after)
     if cfg.final_blend:
         x = x * mask + gt * keep
-    return _finalize_output(x, cfg)
+    return _result(x, frames, cfg)
+
+
+def sample(
+    apply_fn: Callable,
+    sched: DiffusionSchedule,
+    cfg: SamplerConfig,
+    *,
+    shape,
+    noise,
+    x_init: Optional[torch.Tensor] = None,
+    cache_apply: Optional[Tuple[Callable, Callable]] = None,
+    cond_fn: Optional[Callable] = None,
+):
+    """Unconditional generation (the 3-channel base model), library
+    semantics: the reference's `p_sample_loop` / `ddim_sample_loop` with no
+    injection and no blend.
+
+    apply_fn(x, t[B]) -> model output. `noise` needs only `init(shape)` and
+    `step(index, shape)`; the tables go to the device of its init draw (or
+    of x_init). With cfg.encoder_cache_period > 1, cache_apply =
+    (full_fn(x, t) -> (out, cache), cached_fn(x, t, cache) -> out).
+    `cond_fn` as in `inpaint_sample`. cfg.strength < 1 refines `x_init`,
+    which it then needs. Returns [B,H,W,3], or `(images, trajectory)` with
+    cfg.trajectory_every > 0.
+
+    Its DDIM step is the library's, not the inpainting loop's: the learned
+    variance is split off with `split_model_output` and eps is always
+    re-derived from the (clipped) x0.
+    """
+    _check_config(cfg, cond_fn)
+    if cfg.strength < 1.0 and x_init is None:
+        raise ValueError(
+            "strength < 1 on the unconditional sampler needs x_init "
+            "(the clean image to refine)")
+    tables = _method_tables(sched, cfg)
+    x = _initial_state(sched, cfg, int(tables["t"][0]), tuple(shape), x_init, x_init, noise)
+
+    def extract_raw(out):
+        return gd.split_model_output(out, cfg.var_type)[0]
+    if cfg.method == "ddim":
+        aux0 = None
+
+        def update(x, aux, s, out, i):
+            pred_x0 = _clipped_x0(extract_raw(out), x, s, cfg)
+            eps = (x - s["sqrt_a_t"] * pred_x0) / s["sqrt_one_minus_a_t"]
+            if cond_fn is not None:
+                pred_x0, eps = _guide_eps(cond_fn, x, s, pred_x0)
+            x = s["sqrt_a_prev"] * pred_x0 + s["dir_coef"] * eps
+            if tables["noise_gate"][i] > 0:
+                x = x + s["noise_gate"] * s["sigma"] * noise.step(i, x.shape)
+            return x, aux
+    else:
+        aux0, update = _shared_update(cfg, tables, noise, cond_fn, extract_raw)
+
+    call = _model_caller(cfg, len(tables["t"]), apply_fn, cache_apply)
+    x, frames = _run(cfg, tables, x, aux0, update, call)
+    return _result(x, frames, cfg)

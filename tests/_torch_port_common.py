@@ -2,8 +2,10 @@
 
 A small float32 UNet configuration in both packages, the JAX package's
 parameters for it with every leaf perturbed (so that the zero-initialised
-output convs do not make the output identically 0), and a noise source that
-replays the JAX sampler's key draws for the port's sampler.
+output convs do not make the output identically 0), or drawn from numpy
+without compiling the JAX init, noise sources that replay the JAX samplers'
+key draws for the port's samplers, and a closed-form stand-in for the UNet
+written once for both packages.
 """
 import jax
 import jax.numpy as jnp
@@ -57,3 +59,60 @@ class JaxKeyNoise:
 
     def inject(self, timestep, shape):
         return to_torch(jax_sampler._gt_noise(self.inject_key, timestep, shape, jnp.float32))
+
+
+def drawn_jax_variables(module, cfg, seed, *args):
+    """`module(cfg).init`'s variable tree (from `jax.eval_shape`, which
+    compiles nothing) filled from numpy draws: kernels normal over
+    sqrt(fan-in), norm scales 1 + 0.05·normal, the rest 0.05·normal. `args`
+    are the init's dummy inputs after the key."""
+    shapes = jax.eval_shape(module(cfg).init, jax.random.PRNGKey(seed), *args)
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        z = rng.standard_normal(leaf.shape).astype(np.float32)
+        name = path[-1].key
+        if name == "kernel":
+            return z / np.float32(np.sqrt(np.prod(leaf.shape[:-1])))
+        return (1 + 0.05 * z) if name == "scale" else 0.05 * z
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+class JaxKeyNoise2:
+    """The two draws of the JAX unconditional sampler (`sample`): the
+    initial state and the per-step noise by step index."""
+
+    def __init__(self, key):
+        self.init_key, self.step_key = jax_sampler._key_split(key, 2)
+
+    def init(self, shape):
+        return to_torch(jax_sampler._key_normal(self.init_key, shape, jnp.float32))
+
+    def step(self, index, shape):
+        return to_torch(jax_sampler._key_normal(
+            jax_sampler._key_fold(self.step_key, index), shape, jnp.float32))
+
+
+def stub_model(xp):
+    """A cheap nonlinear stand-in for the inpainting UNet, written once for
+    numpy-like `xp` (jnp or torch): 6 output channels, the last 3 a learned
+    variance. The image mean mixes pixels, so the known region's injected
+    noise reaches the hole, as it does through the UNet."""
+
+    def apply_fn(x, t, masked_image, mask):
+        tt = t.astype(xp.float32) if xp is jnp else t.float()
+        mean = (x.mean(axis=(1, 2), keepdims=True) if xp is jnp
+                else x.mean(dim=(1, 2), keepdim=True))
+        h = xp.tanh(0.7 * x + 2.0 * mean - 0.4 * masked_image + 0.3 * mask
+                    + (tt / 1000.0)[:, None, None, None])
+        cat = xp.concatenate if xp is jnp else torch.cat
+        return cat([h, 0.1 * x], -1)
+
+    return apply_fn
+
+
+def stub_base_model(xp):
+    """`stub_model` as an unconditional model, apply_fn(x, t)."""
+    f = stub_model(xp)
+    return lambda x, t: f(x, t, 0.5 * x, 0.0 * x[..., :1] + 1.0)

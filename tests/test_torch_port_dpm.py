@@ -28,6 +28,7 @@ from fidm_tpu_torch.sampling import GeneratorNoise, SamplerConfig, inpaint_sampl
 from fidm_tpu_torch.sampling import sampler as port_sampler
 
 from _torch_port_common import JCFG, PCFG, JaxKeyNoise, perturbed_jax_variables
+from _torch_port_common import stub_model as _model
 
 SHAPE = (2, 8, 8, 3)
 METHODS = ("dpm++2m", "dpm++2m-sde")
@@ -78,23 +79,6 @@ def _inputs(seed, shape=SHAPE):
     mask = np.zeros(shape[:-1] + (1,), np.float32)
     mask[:, 2:6, 1:5] = 1.0
     return gt, mask
-
-
-def _model(xp):
-    """A cheap nonlinear stand-in for the UNet (as in
-    test_torch_port_sampler): 6 output channels, the image mean mixing
-    pixels so that the injected known region reaches the hole."""
-
-    def apply_fn(x, t, masked_image, mask):
-        tt = t.astype(xp.float32) if xp is jnp else t.float()
-        mean = (x.mean(axis=(1, 2), keepdims=True) if xp is jnp
-                else x.mean(dim=(1, 2), keepdim=True))
-        h = xp.tanh(0.7 * x + 2.0 * mean - 0.4 * masked_image + 0.3 * mask
-                    + (tt / 1000.0)[:, None, None, None])
-        cat = xp.concatenate if xp is jnp else torch.cat
-        return cat([h, 0.1 * x], -1)
-
-    return apply_fn
 
 
 def _rowwise_model(x, t, masked_image, mask):

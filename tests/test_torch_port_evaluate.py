@@ -257,9 +257,11 @@ ARGVS = [
     ["--preset", "dpm-25-sde", "--quick_test", "--no_save_images", "--dtype", "f32"],
     ["--fid_weights", "w.pth", "--fid_stats", "s.npz", "--lpips_alexnet", "a.pth",
      "--lpips_lin", "l.pt", "--checkpoint", "m.npz", *MODEL],
+    ["--preset", "repaint-100-light", "--jump_length", "4", "--save_trajectory", "5"],
+    ["--preset", "unipc-20", "--quick_test", "--save_trajectory", "3"],
 ]
 ARGV_IDS = ["defaults", "ddim-50", "deep-tail", "keysteps", "injection", "student",
-            "quick", "metrics"]
+            "quick", "metrics", "repaint-trajectory", "unipc-trajectory"]
 REQUIRED = ["--data_dir", "d", "--mask_dir", "m"]
 
 
@@ -561,10 +563,11 @@ def test_evaluate_empty_mask_samples_stay_aligned(tmp_path):
 
 
 def test_unported_branches_raise_before_building(data_tree, tmp_path, monkeypatch):
-    """Orbax directories, trajectories, the program cache and unported
-    presets raise NotImplementedError naming what is missing, before a model
-    is built; `--fid_stats` without `--fid_weights` raises ValueError as in
-    JAX."""
+    """Orbax directories and the program cache raise NotImplementedError
+    naming what is missing, before a model is built; `--fid_stats` without
+    `--fid_weights` raises ValueError as in JAX. (`--save_trajectory` and the
+    repaint and unipc presets run since the rest of sampling was ported:
+    test_save_trajectory_and_the_new_presets.)"""
     def never(*a, **kw):
         raise AssertionError("built a pipeline")
 
@@ -576,16 +579,43 @@ def test_unported_branches_raise_before_building(data_tree, tmp_path, monkeypatc
     cases = [(["--checkpoint", str(tmp_path / "orbax")], NotImplementedError, "orbax"),
              (["--checkpoint", str(tmp_path / "orbax"), "--use_ema"], NotImplementedError,
               "orbax"),
-             (["--save_trajectory", "2"], NotImplementedError, "--save_trajectory"),
              (["--program_cache", str(tmp_path / "aot")], NotImplementedError,
               "--program_cache"),
-             (["--preset", "repaint-100-light"], NotImplementedError, "not ported"),
-             (["--preset", "unipc-20"], NotImplementedError, "not ported"),
              (["--fid_stats", "s.npz"], ValueError, "--fid_weights")]
     for extra, exc, match in cases:
         with pytest.raises(exc, match=match):
             _port(base + extra)
     assert not (tmp_path / "never").exists()
+
+
+@pytest.mark.parametrize("preset,k", [("unipc-20", 4), ("repaint-100-light", 2)])
+def test_save_trajectory_and_the_new_presets(data_tree, checkpoint, tmp_path, preset, k):
+    """`--save_trajectory K` with a unipc and a repaint preset (once refused
+    as not ported): the JAX CLI's files, `trajectory/{index:05d}_strip.png`
+    for the first 4 samples of each batch, each strip the masked input, the
+    N = (rows - 1)//K + 1 frames and the output side by side."""
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.pipeline import SAMPLER_PRESETS
+    from fidm_tpu_torch.sampling import sampler as port_sampler
+
+    out_dir = tmp_path / "traj"
+    results, blob = _quick(data_tree, out_dir, "--checkpoint", checkpoint, "--preset", preset,
+                           "--save_trajectory", str(k), "--dtype", "f32", "--jump_length",
+                           "3")
+    assert results["num_samples"] == N_IMAGES and results["preset"] == preset
+    assert set(blob) == set(results) | {"per_sample"}
+    cfg = dataclasses.replace(SAMPLER_PRESETS[preset], num_steps=10, jump_length=3)
+    sched = DiffusionSchedule.create("quadratic", 100, device="cpu")
+    rows = len(port_sampler._method_tables(sched, cfg)["t"])
+    n_frames = (rows - 1) // k + 1
+    # 8 samples in 2 batches of 4: every sample gets a strip
+    names = sorted(p.name for p in (out_dir / "trajectory").iterdir())
+    assert names == [f"{i:05d}_strip.png" for i in range(N_IMAGES)]
+    for name in names:
+        strip = np.asarray(Image.open(out_dir / "trajectory" / name))
+        assert strip.shape == (SIZE, (n_frames + 2) * SIZE, 3)
+        frames = strip.reshape(SIZE, n_frames + 2, SIZE, 3).transpose(1, 0, 2, 3)
+        assert len({f.tobytes() for f in frames}) == n_frames + 2
 
 
 def test_cli_defaults_to_cuda_and_raises_without_gpu(data_tree, tmp_path, monkeypatch):

@@ -26,6 +26,21 @@ from fidm_tpu_torch.sampling import SamplerConfig
 from _torch_port_common import JCFG, PCFG, JaxKeyNoise, perturbed_jax_variables
 
 DDIM = dict(method="ddim", num_steps=5, eta=0.9, injection=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread (and one BLAS thread) for this module: the test
+    run shares the CPU between its workers, where torch's default pool of one
+    thread per core spins against the others (the full-step presets below
+    took minutes that way)."""
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(threads)
 CONFIG = PipelineConfig(unet=PCFG, sampler=SamplerConfig(**DDIM))
 
 
@@ -128,9 +143,24 @@ def test_default_config_is_ddim100_on_ffhq256():
 
 @pytest.mark.parametrize("name", ["unipc-20", "consistency-2", "repaint-100-light"])
 def test_unported_presets_raise(pipe, name):
+    """Presets that raised NotImplementedError before the rest of sampling
+    was ported now run through `inpaint` at their full step counts: the
+    model evaluations their host tables give (21, 2 and 301, repaint's 200
+    renoise rows running none), known pixels equal to gt, the output finite
+    and in [-1, 1], the same seed the same image."""
     gt, mask = _inputs(0)
-    with pytest.raises(NotImplementedError):
-        pipe.inpaint(gt, mask, 0, sampler=SAMPLER_PRESETS[name])
+    calls = []
+    hook = pipe.model.register_forward_hook(lambda m, args, out: calls.append(1))
+    try:
+        out = pipe.inpaint(gt, mask, 0, sampler=SAMPLER_PRESETS[name])
+    finally:
+        hook.remove()
+    assert len(calls) == {"unipc-20": 21, "consistency-2": 2, "repaint-100-light": 301}[name]
+    keep = mask[..., 0] < 0.5
+    assert torch.isfinite(out).all() and out.abs().max() <= 1.0
+    np.testing.assert_array_equal(out.numpy()[keep], gt[keep])
+    if name == "consistency-2":
+        assert torch.equal(pipe.inpaint(gt, mask, 0, sampler=SAMPLER_PRESETS[name]), out)
 
 
 def test_create_from_adm_checkpoint(jax_variables, tmp_path):

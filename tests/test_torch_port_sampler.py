@@ -7,6 +7,8 @@ and the port is fed the very noise the JAX sampler draws from its key
 (`_key_split`, `_key_normal`, `_key_fold`, `_gt_noise`), so the two runs
 differ only by float32 rounding.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from fidm_tpu_torch.sampling import SamplerConfig, inpaint_sample
 from fidm_tpu_torch.sampling import sampler as port_sampler
 
 from _torch_port_common import JaxKeyNoise, to_torch
+from _torch_port_common import stub_model as _model
 
 SHAPE = (2, 8, 8, 3)
 
@@ -84,15 +87,73 @@ def test_ddim100_tables_bit_equal(schedule):
 
 
 @pytest.mark.parametrize("name", ["q_sample", "predict_xstart_from_eps",
-                                  "predict_xstart_from_xprev", "predict_xstart_from_v"])
+                                  "predict_xstart_from_xprev", "predict_xstart_from_v",
+                                  "predict_eps_from_xstart", "velocity_from_eps_xstart"])
 def test_gaussian_conversions_match_jax(name):
     rng = np.random.default_rng(4)
     x, y = (rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2))
     t = np.array([3, 871], np.int32)
-    ref = getattr(jax_gaussian, name)(JaxSchedule.create("quadratic", 1000), x, t, y)
+    # velocity_from_eps_xstart takes (t, eps, x_start); the others (x, t, y)
+    args = (t, x, y) if name == "velocity_from_eps_xstart" else (x, t, y)
+    ref = getattr(jax_gaussian, name)(JaxSchedule.create("quadratic", 1000), *args)
     ours = getattr(port_gaussian, name)(DiffusionSchedule.create("quadratic", 1000, device="cpu"),
-                                        *(torch.from_numpy(a) for a in (x, t, y)))
+                                        *(torch.from_numpy(a) for a in args))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["q_mean_variance", "q_posterior_mean_variance"])
+def test_q_distributions_match_jax(name):
+    """mean, variance and log-variance of q(x_t | x_0) and of the posterior."""
+    rng = np.random.default_rng(7)
+    x0, xt = (rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2))
+    t = np.array([0, 642], np.int32)
+    args = (x0, t) if name == "q_mean_variance" else (x0, xt, t)
+    ref = getattr(jax_gaussian, name)(JaxSchedule.create("linear", 1000), *args)
+    ours = getattr(port_gaussian, name)(DiffusionSchedule.create("linear", 1000, device="cpu"),
+                                        *(torch.from_numpy(a) for a in args))
+    assert len(ours) == len(ref) == 3
+    for o, r in zip(ours, ref):
+        assert tuple(o.shape) == np.shape(r)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("var_type", ["LEARNED", "LEARNED_RANGE", "FIXED_SMALL", "FIXED_LARGE"])
+@pytest.mark.parametrize("mean_type", ["EPSILON", "START_X", "VELOCITY", "PREVIOUS_X"])
+def test_p_mean_variance_and_guidance_match_jax(mean_type, var_type):
+    """p(x_{t-1} | x_t) from one model output under every mean and variance
+    type, then both classifier-guidance shifts of it. The learned types get
+    a 6-channel output (LEARNED_RANGE's variance part in [-1, 1]); the
+    LEARNED and FIXED_LARGE cases leave x0 unclipped."""
+    rng = np.random.default_rng(8)
+    learned = var_type.startswith("LEARNED")
+    x, grad = (rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2))
+    out = rng.standard_normal(SHAPE).astype(np.float32)
+    if learned:
+        var = (rng.uniform(-1, 1, SHAPE) if var_type == "LEARNED_RANGE"
+               else rng.uniform(-9, -2, SHAPE)).astype(np.float32)
+        out = np.concatenate([out, var], axis=-1)
+    t = np.array([5, 730], np.int32)
+    clip = var_type not in ("LEARNED", "FIXED_LARGE")
+    jsched = JaxSchedule.create("quadratic", 1000)
+    sched = DiffusionSchedule.create("quadratic", 1000, device="cpu")
+    ref = jax_gaussian.p_mean_variance(
+        jsched, out, x, t, mean_type=jax_gaussian.ModelMeanType[mean_type],
+        var_type=jax_gaussian.ModelVarType[var_type], clip_denoised=clip)
+    tx, tt, tg = (torch.from_numpy(a) for a in (x, t, grad))
+    ours = port_gaussian.p_mean_variance(
+        sched, torch.from_numpy(out), tx, tt,
+        mean_type=port_gaussian.ModelMeanType[mean_type],
+        var_type=port_gaussian.ModelVarType[var_type], clip_denoised=clip)
+    assert isinstance(ours, port_gaussian.PMeanVariance)
+    guided = {"condition_mean": (port_gaussian.condition_mean(ours, tg),
+                                 jax_gaussian.condition_mean(ref, grad)),
+              "condition_score": (port_gaussian.condition_score(sched, ours, tx, tt, tg),
+                                  jax_gaussian.condition_score(jsched, ref, x, t, grad))}
+    for label, (o, r) in [("p_mean_variance", (ours, ref)), *guided.items()]:
+        for f in port_gaussian.PMeanVariance._fields:
+            a, b = getattr(o, f).numpy(), np.asarray(getattr(r, f))
+            assert a.shape == b.shape, (label, f)
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6, err_msg=f"{label}.{f}")
 
 
 @pytest.mark.parametrize("schedule", ["all", "high", "low"])
@@ -125,24 +186,6 @@ def _inputs(seed):
     mask = np.zeros(SHAPE[:-1] + (1,), np.float32)
     mask[:, 2:6, 1:5] = 1.0
     return gt, mask
-
-
-def _model(xp):
-    """A cheap nonlinear stand-in for the UNet, written once for numpy-like
-    `xp` (jnp or torch): 6 output channels, the last 3 (variance) unused.
-    The image mean mixes pixels, so the known region's injected noise
-    reaches the hole, as it does through the UNet."""
-
-    def apply_fn(x, t, masked_image, mask):
-        tt = t.astype(xp.float32) if xp is jnp else t.float()
-        mean = (x.mean(axis=(1, 2), keepdims=True) if xp is jnp
-                else x.mean(dim=(1, 2), keepdim=True))
-        h = xp.tanh(0.7 * x + 2.0 * mean - 0.4 * masked_image + 0.3 * mask
-                    + (tt / 1000.0)[:, None, None, None])
-        cat = xp.concatenate if xp is jnp else torch.cat
-        return cat([h, 0.1 * x], -1)
-
-    return apply_fn
 
 
 @pytest.mark.parametrize("eta,injection,point,schedule", [
@@ -188,20 +231,69 @@ def test_uint8_output_is_clamp_then_truncate():
     dict(method="unipc"), dict(trajectory_every=2),
 ])
 def test_unported_options_raise(kw):
+    """The methods and the option that raised NotImplementedError before the
+    rest of sampling was ported now run (their parity with JAX:
+    test_torch_port_methods): the model is called once per row of the
+    method's host table that evaluates it, at that row's timestep, and the
+    output keeps the contract, finite, in [-1, 1], known pixels equal to gt,
+    the hole filled; trajectory_every=2 gives (K-1)//2 + 1 frames whose last
+    is the output in the hole."""
     gt, mask = (torch.from_numpy(a) for a in _inputs(1))
-    with pytest.raises(NotImplementedError):
-        inpaint_sample(_model(torch), DiffusionSchedule.create("linear", 50, device="cpu"),
-                       SamplerConfig(num_steps=5, **kw), gt=gt, mask=mask,
-                       noise=port_sampler.GeneratorNoise(0, "cpu"))
+    sched = DiffusionSchedule.create("linear", 50, device="cpu")
+    cfg = SamplerConfig(num_steps=5, **kw)
+    if cfg.method == "repaint":  # jumps within the 6 levels
+        cfg = dataclasses.replace(cfg, jump_length=2, jump_n_sample=2)
+    calls = []
+
+    def counted(x, t, masked_image, m):
+        calls.append(int(t[0]))
+        return _model(torch)(x, t, masked_image, m)
+
+    out = inpaint_sample(counted, sched, cfg, gt=gt, mask=mask,
+                         noise=port_sampler.GeneratorNoise(0, "cpu"))
+    tables = port_sampler._method_tables(sched, cfg)
+    runs = tables.get("is_denoise", np.ones(len(tables["t"]), np.int32)) > 0
+    assert calls == [int(t) for t in tables["t"][runs]]
+    if cfg.trajectory_every:
+        out, traj = out
+        K = len(tables["t"])
+        assert traj.shape == ((K - 1) // 2 + 1,) + tuple(gt.shape)
+        hole = mask[..., 0] > 0.5
+        assert torch.equal(traj[-1][hole], out[hole])
+    keep = mask[..., 0] < 0.5
+    assert torch.isfinite(out).all() and out.abs().max() <= 1.0
+    assert torch.equal(out[keep], gt[keep])
+    assert (out[~keep] - gt[~keep]).abs().mean() > 0.1
 
 
 def test_cond_fn_raises():
+    """Classifier guidance, which raised NotImplementedError before it was
+    ported, now runs with DDIM (its parity with JAX:
+    test_torch_port_guidance): cond_fn is called once per step on the model's
+    input at the step's timestep, and moves the hole."""
     gt, mask = (torch.from_numpy(a) for a in _inputs(1))
-    with pytest.raises(NotImplementedError):
-        inpaint_sample(_model(torch), DiffusionSchedule.create("linear", 50, device="cpu"),
-                       SamplerConfig(num_steps=5), gt=gt, mask=mask,
-                       noise=port_sampler.GeneratorNoise(0, "cpu"),
-                       cond_fn=lambda x, t: x)
+    sched = DiffusionSchedule.create("linear", 50, device="cpu")
+    cfg = SamplerConfig(num_steps=5)
+    seen, guided = [], []
+
+    def recorded(x, t, masked_image, m):
+        seen.append((x.clone(), t.clone()))
+        return _model(torch)(x, t, masked_image, m)
+
+    def cond_fn(x, t):
+        guided.append((x.detach().clone(), t.clone()))
+        return 0.5 - x
+
+    out = inpaint_sample(recorded, sched, cfg, gt=gt, mask=mask,
+                         noise=port_sampler.GeneratorNoise(0, "cpu"), cond_fn=cond_fn)
+    plain = inpaint_sample(_model(torch), sched, cfg, gt=gt, mask=mask,
+                           noise=port_sampler.GeneratorNoise(0, "cpu"))
+    assert len(guided) == len(seen) == len(port_sampler._ddim_tables(sched, cfg)["t"])
+    for (x, t), (gx, gt_) in zip(seen, guided):
+        assert torch.equal(x, gx) and torch.equal(t, gt_)
+    keep = mask[..., 0] < 0.5
+    assert torch.equal(out[keep], gt[keep])
+    assert (out[~keep] - plain[~keep]).abs().max() > 1e-2
 
 
 def test_generator_noise_is_keyed_not_ordered():
