@@ -72,13 +72,26 @@ Phases, one line each (or a few), any failure exits non-zero:
    `cli.evaluate --save_trajectory` on 4 of phase 8's images. Each call's
    images and attention launches (4 per model evaluation of the sampler's
    host tables) are gated;
-10. a JSON line of the kernels, then the contract line
+10. training at full width: the attention op under autograd (the kernel
+   forward, the plain version's backward, no launch in it);
+   `fidm_tpu_torch.cli.train` from phase 5's `.pt` on 8 seeded 256² PNGs
+   with a mask directory, batch 4, 2 epochs with an EMA, then `--resume
+   latest` for a third (every step's loss finite, history keys, the
+   checkpoint layout, the resumed epoch, attention launches 4 per train and
+   per validation forward; ms per step, images/s, peak memory, seconds per
+   save); a LoRA run on procedural masks (the base bit-equal, the merged
+   model at step 0 the base); `cli.evaluate` on both checkpoint directories
+   (`--use_ema`; the LoRA adapter merged) and `cli.generate` on the first;
+   then one train step with the kernel against the plain attention, and the
+   remat policies none / convs / full (loss, gradient norm, launches, peak
+   memory, ms per step);
+11. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
 Both TF32 switches are off in phases 1-7 and 9, so float32 products and
-convolutions are full float32 wherever numbers are compared. Phase 8 runs
-the CLIs under torch's own switches, as a user's process has them: there the
-metric networks keep full float32 by their own scoping, which its gates
+convolutions are full float32 wherever numbers are compared. Phases 8 and 10
+run the CLIs under torch's own switches, as a user's process has them: there
+the metric networks keep full float32 by their own scoping, which its gates
 test. Without a CUDA device, or without the `fidm_tpu_torch` package beside
 this file, it exits non-zero and prints no result.
 """
@@ -643,9 +656,9 @@ def redraw_zero_convs(torch, model, seed):
 
 
 def profile_forward(torch, label, fn, top=8):
-    """One call of `fn` (a UNet forward): its time by CUDA events, the host's
-    time to enqueue it, and its device time by kernel (torch.profiler);
-    prints the top kernels and the device's idle share."""
+    """One call of `fn` (a UNet forward, or a train step): its time by CUDA
+    events, the host's time to enqueue it, and its device time by kernel
+    (torch.profiler); prints the top kernels and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     fwd_ms = cuda_ms(torch, fn)
@@ -1791,6 +1804,374 @@ def phase_sampling(torch, np, ckpt, n_attn, smi):
     return total["attention.bf16"]
 
 
+# Phase 10, training at full width from phase 5's `.pt`, batch 4. cli.train
+# runs on 8 training and 4 validation PNGs: 2 train steps and 1 validation
+# batch an epoch, 2 epochs, then a resumed third.
+TRAIN_IMAGES = 8
+VAL_IMAGES = 4
+TRAIN_EPOCHS = 2
+# The keys of each entry of the JAX CLI's history.json (`fidm_tpu/training/loop.py`).
+HISTORY_KEYS = {"epoch", "train_loss", "val_loss", "seconds"}
+# One train step from the same state and draws, the attention kernel against
+# the plain version forced (in both the backward is the plain version's: only
+# the forward differs, by the bf16 rounding of the attention logits that
+# moves one forward's output by 2e-2 of its max, phase 4). The loss is a mean
+# over 786432 squared errors and the gradient norm a norm over 93.6M
+# gradients, so both move far less than the largest output element; each is
+# held to the forward's own bound of 5e-2, relative.
+TRAIN_KERNEL_TOL = 5e-2
+# Remat "full" and "convs" against none on the same state and draws: the
+# recompute runs the same kernels on the same tensors, and only the order of
+# the backward's sums may differ (cuDNN's weight gradients), relative.
+REMAT_TOL = 1e-3
+
+
+def write_train_tree(np, root, size):
+    """TRAIN_IMAGES and VAL_IMAGES seeded PNGs (`write_eval_tree`'s) and a
+    mask root with train/, val/ and test/ dirs of the same box and brush
+    masks. Returns (train dir, val dir, mask root, the masks)."""
+    import shutil
+
+    train_dir, mask_root, masks = write_eval_tree(np, root / "train", size, TRAIN_IMAGES, seed=11)
+    val_dir, _, _ = write_eval_tree(np, root / "val", size, VAL_IMAGES, seed=12)
+    for split in ("train", "val"):
+        shutil.copytree(mask_root / "test", mask_root / split)
+    return train_dir, val_dir, mask_root, masks
+
+
+def phase_training(torch, np, ckpt, n_attn, smi):
+    """Phase 10: training at full width. `cli.train` from phase 5's `.pt`
+    (2 epochs with an EMA, then `--resume latest` for a third), one train
+    step with the kernel against the plain attention, the three remat
+    policies, a LoRA run on procedural masks, and the checkpoint directories
+    read back by `cli.evaluate` and `cli.generate`. Returns the bf16
+    attention launches of the phase's kernel-path calls."""
+    import contextlib
+
+    import fidm_tpu_torch.training as training_pkg
+    from fidm_tpu_torch.cli import evaluate as evaluate_cli
+    from fidm_tpu_torch.cli import generate as generate_cli
+    from fidm_tpu_torch.cli import train as train_cli
+    from fidm_tpu_torch.data import create_inpainting_dataloaders
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.lora import merge_lora, select_lora_targets
+    from fidm_tpu_torch.models import InpaintingUNet, ffhq256_config
+    from fidm_tpu_torch.models.weights import load_adm_checkpoint, torch_key_map
+    from fidm_tpu_torch.ops import LAUNCHES, kernel_override, qkv_attention
+    from fidm_tpu_torch.ops.attention import _attention_reference
+    from fidm_tpu_torch.training import (TrainState, make_lr_schedule, make_optimizer,
+                                         make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = ffhq256_config()
+    size = cfg.image_size
+    total = collections.Counter()
+    base_sd = load_adm_checkpoint(str(ckpt), cfg)
+
+    # the attention op under autograd: the forward launches the kernel, the
+    # backward recomputes the plain version (no launch) and differentiates it
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    shape = (BATCH, 8, 256, 64)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    up = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    LAUNCHES.clear()
+    out = qkv_attention(q, k, v)
+    fwd = LAUNCHES["attention.bf16"]
+    grads = torch.autograd.grad(out, (q, k, v), up)
+    torch.cuda.synchronize()
+    bwd = LAUNCHES["attention.bf16"] - fwd
+    refs = [a.detach().requires_grad_() for a in (q, k, v)]
+    ref_grads = torch.autograd.grad(_attention_reference(*refs), refs, up)
+    gaps = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            for a, b in zip(grads, ref_grads)]
+    print(f"[10] attention under autograd {list(shape)} bf16: forward kernel launches {fwd}, "
+          f"backward launches {bwd}; dq, dk, dv against the plain version's autograd, max abs "
+          f"/ max: {', '.join(f'{e:.3g}' for e in gaps)} (tol 2^-8: the same plain ops)",
+          flush=True)
+    check(fwd == 1 and bwd == 0, f"[10] attention launches forward {fwd}, backward {bwd}")
+    check(max(gaps) <= 2.0 ** -8, "[10] the attention backward is not the plain version's")
+    del q, k, v, up, out, grads, refs, ref_grads
+
+    # cli.train's steps and saves, recorded where the CLI looks them up
+    record = {"steps": [], "saves": [], "state": None, "initial": None}
+    real_make, real_mgr = training_pkg.make_train_step, training_pkg.CheckpointManager
+
+    def recording_make(*args, **kw):
+        step = real_make(*args, **kw)
+
+        def recorded(state, batch, draws):
+            if record["state"] is None:
+                record["state"] = state
+                record["initial"] = {k: t.detach().clone() for k, t in state.params.items()}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, metrics = step(state, batch, draws)
+            end.record()
+            end.synchronize()
+            record["steps"].append((float(metrics["loss"]), start.elapsed_time(end),
+                                    (time.perf_counter() - t0) * 1e3))
+            return state, metrics
+
+        return recorded
+
+    class TimedManager(real_mgr):
+        def save(self, *args, **kw):
+            t0 = time.perf_counter()
+            result = super().save(*args, **kw)
+            record["saves"].append(time.perf_counter() - t0)
+            return result
+
+    def cli_train(label, argv, n_epochs):
+        record.update(steps=[], saves=[], state=None, initial=None)
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history = train_cli.main(argv)
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+        total.update(launches)
+        steps = record["steps"]
+        n_train, n_val = n_epochs * per_epoch[0], n_epochs * per_epoch[1]
+        ev = [s[1] for s in steps[1:]]
+        host = [s[2] for s in steps[1:]]
+        ms = float(np.mean(ev)) if ev else float("nan")
+        print(f"[10] {label}: {secs:.3f} s wall, {len(steps)} train steps, losses "
+              f"{[round(s[0], 5) for s in steps]}; after the first step {ms:.3f} ms per step "
+              f"by CUDA events ({', '.join(f'{x:.3f}' for x in ev)}), "
+              f"{float(np.mean(host)) if host else float('nan'):.3f} ms by host clock, "
+              f"{BATCH / ms * 1e3:.2f} training images/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; checkpoint saves "
+              f"{', '.join(f'{x:.3f}' for x in record['saves'])} s; launches {launches}; "
+              f"history {[{k: h[k] for k in ('epoch', 'train_loss', 'val_loss')} for h in history]}"
+              f"; {smi}", flush=True)
+        check(len(steps) == n_train, f"[10] {label}: {len(steps)} train steps, not {n_train}")
+        check(all(np.isfinite(s[0]) for s in steps), f"[10] {label}: a non-finite loss")
+        expect = n_attn * (n_train + n_val)
+        check(launches == {"attention": expect, "attention.bf16": expect},
+              f"[10] {label}: launches {launches}, not {n_attn} x ({n_train} train + "
+              f"{n_val} validation forwards) of the bf16 kernel")
+        check(all(set(h) == HISTORY_KEYS for h in history),
+              f"[10] {label}: history keys {[sorted(h) for h in history]}")
+        return history
+
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        train_dir, val_dir, mask_root, masks = write_train_tree(np, tmp / "data", size)
+        # train steps and validation batches an epoch, from the CLI's loaders
+        per_epoch = tuple(len(ld) for ld in create_inpainting_dataloaders(
+            train_dir, val_dir, mask_root, batch_size=BATCH, img_size=size))
+        common = ["--train_dir", str(train_dir), "--val_dir", str(val_dir), "--pretrained",
+                  str(ckpt), "--batch_size", str(BATCH), "--device", "cuda"]
+        ck, lora_ck = tmp / "ck", tmp / "lora"
+        training_pkg.make_train_step, training_pkg.CheckpointManager = recording_make, TimedManager
+        try:
+            # 1. cli.train, 2 epochs with an EMA, then resumed for a third
+            argv = common + ["--mask_dir", str(mask_root), "--checkpoint_dir", str(ck),
+                             "--ema_decay", "0.999"]
+            history = cli_train("cli.train, 2 epochs, --ema_decay 0.999",
+                                argv + ["--num_epochs", str(TRAIN_EPOCHS)], TRAIN_EPOCHS)
+            layout = sorted(p.name for p in ck.iterdir())
+            steps = sorted(p.name for p in (ck / "steps").iterdir())
+            best = json.loads((ck / "best.json").read_text())
+            print(f"[10] checkpoint dir: {layout}, steps {steps}, best.json {best}", flush=True)
+            check([h["epoch"] for h in history] == [0, 1], f"[10] epochs {history}")
+            check(steps == ["0", "1"] and (ck / "best" / "state.pt").exists()
+                  and {"mean_type", "epoch", "val_loss", "step"} <= set(best),
+                  f"[10] checkpoint layout {layout}, steps {steps}, best.json {best}")
+            resumed = cli_train("cli.train --resume latest, to 3 epochs",
+                                argv + ["--num_epochs", str(TRAIN_EPOCHS + 1), "--resume",
+                                        "latest"], 1)
+            check([h["epoch"] for h in resumed] == [TRAIN_EPOCHS],
+                  f"[10] the resumed run's epochs {[h['epoch'] for h in resumed]}")
+
+            # 4. LoRA rank 8, one epoch, on procedural masks
+            cli_train("cli.train --lora_rank 8, 1 epoch, procedural masks",
+                      common + ["--checkpoint_dir", str(lora_ck), "--lora_rank", "8",
+                                "--num_epochs", "1"], 1)
+        finally:
+            training_pkg.make_train_step, training_pkg.CheckpointManager = real_make, real_mgr
+        lora_state, lora0 = record["state"], record["initial"]
+        base_now = {k: t.cpu() for k, t in lora_state.model.state_dict().items()}
+        saved_base = torch.load(lora_ck / "lora_base" / "state.pt", weights_only=True)
+        merged0 = merge_lora(base_sd, {k: t.cpu() for k, t in lora0.items()}, cfg)
+        trained = train_cli.load_checkpoint_params(str(lora_ck), "latest", False, cfg)
+        prefixes = {p for fp, p, kind in torch_key_map(cfg)
+                    if "/".join(("base",) + fp) in set(select_lora_targets(cfg))}
+        moved = sorted(k for k in base_sd if not torch.equal(trained[k], base_sd[k]))
+        print(f"[10] LoRA: {len(lora0)} adapter tensors on {len(prefixes)} layers; the base "
+              f"after training bit-equal to the .pt: "
+              f"{all(torch.equal(base_now[k], base_sd[k]) for k in base_sd)}; lora_base/ "
+              f"bit-equal: {all(torch.equal(saved_base[k], base_sd[k]) for k in base_sd)}; "
+              f"merged at step 0 bit-equal to the base: "
+              f"{all(torch.equal(merged0[k], base_sd[k]) for k in base_sd)}; weights the "
+              f"trained adapter moves: {len(moved)}", flush=True)
+        check(all(torch.equal(base_now[k], base_sd[k]) for k in base_sd),
+              "[10] LoRA training changed the frozen base")
+        check(all(torch.equal(saved_base[k], base_sd[k]) for k in base_sd),
+              "[10] lora_base/ is not the base")
+        check(all(torch.equal(merged0[k], base_sd[k]) for k in base_sd),
+              "[10] the merged model at step 0 is not the base")
+        check(moved and set(moved) == {f"{p}.weight" for p in prefixes},
+              f"[10] the trained adapter moved {moved}, not the target weights")
+        del lora_state, record["state"]
+
+        # 5. the checkpoint directories read back: cli.evaluate (EMA; LoRA)
+        # and cli.generate (the 9-channel model with full-hole conditioning)
+        for label, ck_dir, extra in (("--use_ema", ck, ["--use_ema"]), ("LoRA", lora_ck, [])):
+            out_dir = tmp / f"eval_{label.strip('-')}"
+            argv = ["--data_dir", str(val_dir), "--mask_dir", str(mask_root), "--output_dir",
+                    str(out_dir), "--checkpoint", str(ck_dir), "--num_samples", str(VAL_IMAGES),
+                    "--batch_size", str(BATCH), "--ddim_timesteps", str(QUICK_STEPS),
+                    "--device", "cuda", *extra]
+            sched_q = DiffusionSchedule.create("quadratic", 1000, device="cpu")
+            K = preset_steps(sched_q, evaluate_cli.build_sampler(evaluate_cli.parse_args(argv)))[0]
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            evaluate_cli.main(argv)
+            secs = time.perf_counter() - t0
+            launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+            total.update(launches)
+            blob = json.loads((out_dir / "metrics.json").read_text())
+            print(f"[10] cli.evaluate --checkpoint DIR {label}, {VAL_IMAGES} images, {K} steps: "
+                  f"{secs:.3f} s wall; ssim {blob['ssim_mean']:.4f}, psnr "
+                  f"{blob['psnr_mean']:.3f}; launches {launches}", flush=True)
+            check_eval_blob(np, f"[10] evaluate {label}", blob, EVAL_KEYS, EVAL_PER_SAMPLE,
+                            masks, VAL_IMAGES)
+            check_known_pixels(np, f"[10] evaluate {label}", out_dir, masks, VAL_IMAGES)
+            check(launches == {"attention": n_attn * K, "attention.bf16": n_attn * K},
+                  f"[10] evaluate {label}: launches {launches}, not {n_attn} x {K}")
+        gen_dir = tmp / "gen"
+        argv = ["--checkpoint", str(ck), "--use_ema", "--num_samples", str(BATCH),
+                "--batch_size", str(BATCH), "--method", "ddim", "--ddim_timesteps",
+                str(QUICK_STEPS), "--schedule", "quadratic", "--output_dir", str(gen_dir),
+                "--device", "cuda"]
+        sched_q = DiffusionSchedule.create("quadratic", 1000, device="cpu")
+        evals = preset_steps(sched_q, generate_cli.build_sampler(generate_cli.parse_args(argv)))[0]
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        n = generate_cli.main(argv)
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+        total.update(launches)
+        files = sorted(p.name for p in gen_dir.iterdir())
+        from PIL import Image
+
+        imgs = [np.asarray(Image.open(gen_dir / f"{i:05d}.png")) for i in range(BATCH)]
+        print(f"[10] cli.generate --checkpoint DIR --use_ema (the 9-channel model, full-hole "
+              f"conditioning): {secs:.3f} s wall, {n} samples, {files}, {evals} model "
+              f"evaluations; launches {launches}", flush=True)
+        check(files == [f"{i:05d}.png" for i in range(BATCH)] + ["grid.png"],
+              f"[10] cli.generate wrote {files}")
+        check(all(im.shape == (size, size, 3) and im.std() > 0 for im in imgs),
+              "[10] cli.generate: a flat or misshapen image")
+        check(launches == {"attention": n_attn * evals, "attention.bf16": n_attn * evals},
+              f"[10] cli.generate: launches {launches}, not {n_attn} x {evals}")
+
+        # 2-3. one train step from one state and draws: the kernel against
+        # the plain attention, and the three remat policies
+        model = InpaintingUNet(cfg)
+        model.load_state_dict(base_sd, strict=True)
+        model = model.to("cuda")
+        sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
+        loader, _ = create_inpainting_dataloaders(train_dir, val_dir, mask_root,
+                                                  batch_size=BATCH, img_size=size, seed=0)
+        batch = next(iter(loader))
+        step_fn = make_train_step(sched)
+
+        def fresh_state(policy):
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(base_sd[name])
+            model.config = dataclasses.replace(cfg, remat=policy != "none",
+                                               remat_policy=policy if policy != "none" else "full")
+            return TrainState.create(model, dict(model.named_parameters()),
+                                     make_optimizer(make_lr_schedule("none", 5e-5, 1)))
+
+        def one_step(policy, plain=False):
+            state = fresh_state(policy)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+
+            def ctx():
+                return kernel_override(False, "attention") if plain else contextlib.nullcontext()
+
+            with ctx():
+                _, metrics = step_fn(state, batch, 0)
+            metrics = {k: float(m) for k, m in metrics.items()}
+            launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+            peak = torch.cuda.max_memory_allocated()
+            with ctx():
+                ms = cuda_ms(torch, lambda: step_fn(state, batch, 0), budget_ms=300.0)
+            del state
+            return metrics, launches, peak, ms
+
+        results = {}
+        for policy in ("none", "convs", "full"):
+            results[policy] = one_step(policy)
+            total.update(results[policy][1])
+        # where a step's time goes: device busy against the step, by kernel
+        state = fresh_state("none")
+        before = LAUNCHES["attention.bf16"]
+        profile_forward(torch, f"[10] one train step B={BATCH} (no remat)",
+                        lambda: step_fn(state, batch, 0))
+        total["attention.bf16"] += LAUNCHES["attention.bf16"] - before
+        del state
+        plain_metrics, plain_launches, _, plain_ms = one_step("none", plain=True)
+        # the kernel path timed again after the others: the first step timed
+        # in a process pays for the allocator's growth and cuDNN's choices
+        again = one_step("none")
+        total.update(again[1])
+        again_ms = again[3]
+        model.config = cfg
+
+        def rel(a, b):
+            return abs(a - b) / abs(b)
+
+        km = results["none"][0]
+        print(f"[10] one train step B={BATCH}, kernel vs plain attention: loss {km['loss']:.6f} / "
+              f"{plain_metrics['loss']:.6f} (rel {rel(km['loss'], plain_metrics['loss']):.3g}), "
+              f"grad_norm {km['grad_norm']:.6f} / {plain_metrics['grad_norm']:.6f} (rel "
+              f"{rel(km['grad_norm'], plain_metrics['grad_norm']):.3g}), tol "
+              f"{TRAIN_KERNEL_TOL}; launches {results['none'][1]} / {plain_launches}; "
+              f"{results['none'][3]:.3f} (timed first; {again_ms:.3f} timed last) / "
+              f"{plain_ms:.3f} ms per step; {smi}", flush=True)
+        check(plain_launches == {}, "[10] the plain train step launched the kernel")
+        check(results["none"][1] == {"attention": n_attn, "attention.bf16": n_attn},
+              f"[10] a train step launched {results['none'][1]}, not {n_attn} forwards and a "
+              f"plain backward")
+        check(rel(km["loss"], plain_metrics["loss"]) <= TRAIN_KERNEL_TOL
+              and rel(km["grad_norm"], plain_metrics["grad_norm"]) <= TRAIN_KERNEL_TOL,
+              "[10] train step: kernel and plain attention disagree")
+        for policy in ("none", "convs", "full"):
+            m, launches, peak, ms = results[policy]
+            print(f"[10] remat {policy}: loss {m['loss']:.6f} (rel {rel(m['loss'], km['loss']):.3g}"
+                  f"), grad_norm {m['grad_norm']:.6f} (rel "
+                  f"{rel(m['grad_norm'], km['grad_norm']):.3g}), tol {REMAT_TOL}; launches "
+                  f"{launches}; peak device memory {peak / 2**30:.3f} GiB; {ms:.3f} ms per step "
+                  f"by CUDA events; {smi}", flush=True)
+            check(rel(m["loss"], km["loss"]) <= REMAT_TOL
+                  and rel(m["grad_norm"], km["grad_norm"]) <= REMAT_TOL,
+                  f"[10] remat {policy} moved the loss or the gradient norm")
+            # the forward, and under remat each attention block once more in
+            # the backward's recompute
+            expect = n_attn * (1 if policy == "none" else 2)
+            check(launches == {"attention": expect, "attention.bf16": expect},
+                  f"[10] remat {policy}: launches {launches}, not {expect}")
+        check(results["full"][2] < results["none"][2],
+              "[10] remat full did not lower the peak memory")
+        del model
+        torch.cuda.empty_cache()
+    print(f"[10] phase wall {time.perf_counter() - t_phase:.1f} s; bf16 attention launches "
+          f"{total['attention.bf16']}; {smi}", flush=True)
+    return total["attention.bf16"]
+
+
 def main():
     import torch
 
@@ -2102,18 +2483,25 @@ def main():
     # (phase 8's last forward left them so), on phase 3's model and phase 5's
     # checkpoint
     sampling_launches = phase_sampling(torch, np, ckpt, n_attn, smi)
+
+    # 10. training at full width from phase 5's checkpoint, under torch's
+    # default TF32 switches, as a user's training process has them
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    training_launches = phase_training(torch, np, ckpt, n_attn, smi)
     ckpt_dir.cleanup()
 
-    # 10. the record
-    # launches: attention_bf16 in phase 3's DDIM-100 call and phase 9's
+    # 11. the record
+    # launches: attention_bf16 in phase 3's DDIM-100 call, phase 9's
     # kernel-path calls (the new methods, guidance, the trajectory, the
-    # CLIs), attention_f32 in phase 8's `cli.evaluate --dtype f32` run (its
-    # user path; phase 4's float32 forward launched it too), quantize in
-    # phase 5's absmax CLI run
+    # CLIs) and phase 10's (cli.train's train and validation forwards, the
+    # remat policies' steps, the CLIs on its checkpoints), attention_f32 in
+    # phase 8's `cli.evaluate --dtype f32` run (its user path; phase 4's
+    # float32 forward launched it too), quantize in phase 5's absmax CLI run
     kernels = [dict(name="attention_bf16", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
-                    launches=launches["attention.bf16"] + sampling_launches,
+                    launches=launches["attention.bf16"] + sampling_launches
+                    + training_launches,
                     **attn_rows[torch.bfloat16]),
                dict(name="attention_f32", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",

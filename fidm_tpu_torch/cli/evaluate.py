@@ -14,8 +14,12 @@ and `--lpips_lin`, and `metrics.txt` / `metrics.json` in the JAX CLI's
 layout (`InpaintingSampler.run_sampling`, `test_inpainting_better.py:715-807`).
 
 The flags and defaults are the JAX CLI's, plus `--device` (default cuda;
-raises without a GPU). `--checkpoint` takes an ADM `.pt` or an int8 `.npz`
-of either package; without one the weights are random (seed `--seed`).
+raises without a GPU). `--checkpoint` takes an ADM `.pt`, an int8 `.npz`
+of either package, or a training checkpoint directory of `cli.train`
+(`training/checkpoint.py`'s format: `best/` if it exists, else the latest
+step; `--use_ema` takes its EMA parameters; a LoRA adapter is merged onto
+the directory's `lora_base/`; the `mean_type` it recorded is used unless
+`--mean_type` is given); without one the weights are random (seed `--seed`).
 Each batch's noise comes from `batch_noise(seed, batch index)`, a
 `GeneratorNoise`: the JAX CLI folds the batch index into its key, whose
 threefry draws torch cannot reproduce, so the two CLIs sample other noise.
@@ -26,10 +30,9 @@ samples as strips (masked input, every K-th sampler state, the output) to
 `output_dir/trajectory/{index:05d}_strip.png`, as the JAX CLI does.
 
 Not ported yet, and refused with NotImplementedError before the model is
-built: orbax checkpoint directories (with `--use_ema` or LoRA adapters; they
-come with training) and `--program_cache` (with a CUDA-graph warm cache).
-The JAX CLI's persistent compilation cache has no counterpart: PyTorch runs
-eagerly.
+built: `--program_cache` (with a CUDA-graph warm cache). Directories written
+by the JAX package's orbax manager are not read. The JAX CLI's persistent
+compilation cache has no counterpart: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -136,8 +139,8 @@ def parse_args(argv=None):
     p.add_argument("--save_images", action="store_true", default=True)
     p.add_argument("--no_save_images", dest="save_images", action="store_false")
     p.add_argument("--use_ema", action="store_true",
-                   help="evaluate the EMA parameters of an orbax training "
-                        "checkpoint (not ported yet)")
+                   help="evaluate the EMA parameters of a training checkpoint "
+                        "directory")
     p.add_argument("--lpips_alexnet", default=None,
                    help="path to torchvision AlexNet .pth for real LPIPS")
     p.add_argument("--lpips_lin", default=None,
@@ -172,21 +175,27 @@ def batch_noise(seed: int, bi: int, device):
 
 def _refuse_unported(args):
     """The JAX CLI's branches that later parts of the port bring, refused
-    before anything is built."""
+    before anything is built; and a checkpoint directory without a
+    checkpoint."""
     if args.checkpoint and os.path.isdir(args.checkpoint):
-        raise NotImplementedError(
-            f"{args.checkpoint} is a directory: orbax training checkpoints "
-            "(and --use_ema, LoRA adapters) are not ported yet; they come "
-            "with the training port. Pass an ADM .pt or an int8 .npz")
+        from .train import require_checkpoint
+
+        require_checkpoint(args.checkpoint)
     if args.program_cache:
         raise NotImplementedError(
             "--program_cache is not ported yet: it comes with the warm cache "
             "(CUDA-graph captures per preset and batch size)")
 
 
+def _checkpoint_which(ckpt: str) -> str:
+    """A training checkpoint directory's `best` if it has one, else its
+    latest step."""
+    return "best" if os.path.isdir(os.path.join(ckpt, "best")) else "latest"
+
+
 def build_sampler(args):
     """The preset with the CLI's overrides applied, as the JAX CLI applies
-    them (without checkpoint metadata: orbax directories are refused)."""
+    them."""
     from ..diffusion import ModelMeanType
     from ..pipeline import SAMPLER_PRESETS
 
@@ -201,8 +210,20 @@ def build_sampler(args):
         sampler = dataclasses.replace(sampler, jump_n_sample=args.jump_n_sample)
     if args.eta is not None:
         sampler = dataclasses.replace(sampler, eta=args.eta)
-    mean_type = (ModelMeanType.from_name(args.mean_type) if args.mean_type is not None
-                 else sampler.mean_type)
+    # explicit flag > training checkpoint metadata > the preset's
+    meta_mt = None
+    if args.mean_type is None and args.checkpoint and os.path.isdir(args.checkpoint):
+        from .train import checkpoint_mean_type
+
+        meta_mt = checkpoint_mean_type(args.checkpoint, _checkpoint_which(args.checkpoint))
+        if meta_mt:
+            print(f"mean_type '{meta_mt}' from checkpoint metadata")
+    if args.mean_type is not None:
+        mean_type = ModelMeanType.from_name(args.mean_type)
+    elif meta_mt:
+        mean_type = ModelMeanType.from_name(meta_mt)
+    else:
+        mean_type = sampler.mean_type
     sampler = dataclasses.replace(
         sampler,
         injection=not args.no_injection,
@@ -248,9 +269,9 @@ def _to_cpu(tree):
 
 def build_pipeline(args, sampler):
     """The pipeline on `--device`: the model shape from the flags, the
-    weights from `--checkpoint` (`.pt` or int8 `.npz`), then `--quantize
-    int8` (quantized and dequantized on the device: the quantize kernel on
-    the card)."""
+    weights from `--checkpoint` (a training checkpoint directory, `.pt` or
+    int8 `.npz`), then `--quantize int8` (quantized and dequantized on the
+    device: the quantize kernel on the card)."""
     from ..models import ffhq256_config
     from ..models.weights import jax_tree_from_state_dict, state_dict_from_jax
     from ..pipeline import InpaintingPipeline, PipelineConfig
@@ -271,14 +292,26 @@ def build_pipeline(args, sampler):
         sampler=sampler,
     )
     ckpt = args.checkpoint
-    if args.use_ema:
-        print("WARNING: --use_ema ignored — only orbax training checkpoints "
-              "carry EMA parameters")
-    if ckpt and ckpt.endswith(".npz"):
+    if ckpt and os.path.isdir(ckpt):
+        from .train import load_checkpoint_params
+
+        pipe = InpaintingPipeline.create(config, seed=args.seed, device=args.device)
+        params = load_checkpoint_params(ckpt, _checkpoint_which(ckpt), args.use_ema,
+                                        config.unet)
+        pipe.model.load_state_dict(params, strict=True)
+        print(f"loaded training checkpoint params from {ckpt}"
+              + (" (EMA)" if args.use_ema else ""))
+    elif ckpt and ckpt.endswith(".npz"):
+        if args.use_ema:
+            print("WARNING: --use_ema ignored — int8 .npz checkpoints carry no EMA "
+                  "parameters (only training checkpoints do)")
         pipe = InpaintingPipeline.create(config, seed=args.seed, device=args.device)
         pipe.model.load_state_dict(load_quantized_state_dict(ckpt, config.unet), strict=True)
         print(f"loaded int8-quantized params from {ckpt}")
     else:
+        if args.use_ema:
+            print("WARNING: --use_ema ignored — only training checkpoints carry "
+                  "EMA parameters")
         pipe = InpaintingPipeline.create(config, checkpoint=ckpt, seed=args.seed,
                                          device=args.device)
     if args.quantize == "int8":

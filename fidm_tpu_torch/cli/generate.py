@@ -7,8 +7,11 @@ without injection, e.g. the DDPM-1000 baseline of a pretrained model:
     python -m fidm_tpu_torch.cli.generate --checkpoint ffhq.pt --num_samples 16
 
 `--checkpoint` takes a torch `.pt` of the 3-channel base UNet (6 output
-channels, learned-range variance); without one the weights are random
-(torch's init, seed `--seed`). Writes `{i:05d}.png` per sample and
+channels, learned-range variance), or a training checkpoint directory of
+`cli.train`, whose 9-channel inpainting model is sampled with full-hole
+conditioning (its latest step, the EMA with `--use_ema`, a LoRA adapter
+merged onto its `lora_base/`, its recorded `mean_type`); without one the
+weights are random (torch's init, seed `--seed`). Writes `{i:05d}.png` per sample and
 `grid.png` (the first 16, 4 a row) to `--output_dir`. The flags and defaults
 are the JAX CLI's, plus `--device` (default cuda; raises without a GPU).
 
@@ -17,9 +20,8 @@ the batch's first sample), as `cli.evaluate.batch_noise` makes it; the JAX
 CLI folds that offset into its key, whose threefry draws torch cannot
 reproduce, so the two CLIs sample other noise.
 
-Not ported yet: the native training-checkpoint directory (the 9-channel
-model sampled with full-hole conditioning, `--use_ema`); it comes with
-training and is refused with NotImplementedError before any model is built.
+The JAX CLI does not merge a LoRA adapter here; the port does, with
+`cli.evaluate`'s code.
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Unconditional sampling")
     p.add_argument("--checkpoint", default=None,
-                   help="torch .pt (3-channel base UNet); a native checkpoint "
-                        "dir is not ported yet")
+                   help="torch .pt (3-channel base UNet) or a training "
+                        "checkpoint dir (cli.train)")
     p.add_argument("--use_ema", action="store_true",
                    help="native dir: sample the EMA parameters")
     p.add_argument("--output_dir", default="generated")
@@ -68,8 +70,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_sampler(args):
-    """The sampler config the JAX CLI builds from the same flags."""
+def build_sampler(args, meta_mean_type=None):
+    """The sampler config the JAX CLI builds from the same flags (and the
+    `mean_type` a training checkpoint recorded)."""
     from ..diffusion import ModelMeanType
     from ..sampling import SamplerConfig
 
@@ -78,6 +81,8 @@ def build_sampler(args):
         num_steps = 2  # 1-2 evaluations is the method's operating point
     if args.mean_type is not None:
         mean_type = ModelMeanType.from_name(args.mean_type)
+    elif meta_mean_type:
+        mean_type = ModelMeanType.from_name(meta_mean_type)
     else:
         # consistency students are velocity-parameterized by default
         mean_type = (ModelMeanType.VELOCITY if args.method == "consistency"
@@ -109,6 +114,42 @@ def build_model(args, device):
     return model.to(device).eval().requires_grad_(False)
 
 
+def build_checkpoint_model(args, device):
+    """A training checkpoint directory's 9-channel inpainting model, sampled
+    unconditionally with full-hole conditioning (masked image 0, mask 1: the
+    model sees no known pixel), as the JAX CLI does: its latest step (the
+    EMA with `--use_ema`; a LoRA adapter merged onto `lora_base/`). Returns
+    (model(x, t), the recorded mean_type or None)."""
+    from ..models import InpaintingUNet, ffhq256_config
+    from .train import checkpoint_mean_type, load_checkpoint_params
+
+    cfg = ffhq256_config(
+        image_size=args.image_size,
+        model_channels=args.model_channels,
+        channel_mult=tuple(args.channel_mult),
+        num_heads=args.num_heads,
+        num_head_channels=args.num_head_channels,
+        attention_resolutions=tuple(args.attention_resolutions),
+    )
+    params = load_checkpoint_params(args.checkpoint, "latest", args.use_ema, cfg)
+    meta_mt = checkpoint_mean_type(args.checkpoint, "latest")
+    if meta_mt:
+        print(f"mean_type '{meta_mt}' from checkpoint metadata")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        model9 = InpaintingUNet(cfg)
+    model9.load_state_dict(params, strict=True)
+    model9 = model9.to(device).eval().requires_grad_(False)
+    S = args.image_size
+
+    def model_apply(x, t):
+        B = x.shape[0]
+        return model9(x, t, torch.zeros((B, S, S, 3), dtype=x.dtype, device=x.device),
+                      torch.ones((B, S, S, 1), dtype=x.dtype, device=x.device))
+
+    return model_apply, meta_mt
+
+
 def main(argv=None):
     from ..device import resolve_device
     from ..diffusion import DiffusionSchedule
@@ -118,15 +159,16 @@ def main(argv=None):
 
     args = parse_args(argv)
     if args.checkpoint and os.path.isdir(args.checkpoint):
-        raise NotImplementedError(
-            f"{args.checkpoint} is a directory: native training checkpoints "
-            "(the 9-channel model with full-hole conditioning, --use_ema) are "
-            "not ported yet; they come with the training port. Pass a .pt of "
-            "the 3-channel base UNet")
+        from .train import require_checkpoint
+
+        require_checkpoint(args.checkpoint)
     device = resolve_device(args.device)
     sched = DiffusionSchedule.create(args.schedule, args.diffusion_steps, device=device)
-    model = build_model(args, device)
-    scfg = build_sampler(args)
+    if args.checkpoint and os.path.isdir(args.checkpoint):
+        model, meta_mt = build_checkpoint_model(args, device)
+    else:
+        model, meta_mt = build_model(args, device), None
+    scfg = build_sampler(args, meta_mt)
     S = args.image_size
 
     os.makedirs(args.output_dir, exist_ok=True)

@@ -2,6 +2,7 @@ from .dataset import (
     DataLoader,
     InpaintingDataset,
     create_inference_dataloader,
+    create_inpainting_dataloaders,
     list_images,
     load_image,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "InpaintingDataset",
     "ShardReader",
     "create_inference_dataloader",
+    "create_inpainting_dataloaders",
     "is_packed_dir",
     "list_images",
     "load_image",

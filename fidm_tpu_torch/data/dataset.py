@@ -9,11 +9,13 @@ Counterpart of the inference part of `fidm_tpu/data/dataset.py`:
   the black = inpaint inversion.
 - `DataLoader`: a multi-epoch batcher (shuffle / drop-last / subset) that
   yields dicts of stacked NHWC numpy arrays.
+- `create_inpainting_dataloaders`: the training pair, a shuffled train
+  loader that drops a ragged last batch and a sequential val loader.
 - `create_inference_dataloader`: the test loader with ordered masks.
 
 Image files decode with PIL, imported when a file is read; normalize and
 compose are numpy (what `fidm_tpu` computes when its native library is not
-built). The training loaders stay with the training slice.
+built).
 
 Every item is `{image, masked_image, mask, image_path, mask_path}`,
 channel-last.
@@ -32,6 +34,7 @@ __all__ = [
     "load_image",
     "InpaintingDataset",
     "DataLoader",
+    "create_inpainting_dataloaders",
     "create_inference_dataloader",
 ]
 
@@ -182,12 +185,16 @@ class DataLoader:
     """Minimal batcher: shuffle, drop_last, stacked numpy dict batches.
 
     Every array-valued item key is stacked; numeric scalars become 1-D
-    arrays; anything else (paths) stays a list."""
+    arrays; anything else (paths) stays a list. `process_local` is the JAX
+    loader's switch for multi-process feeding; the port trains in one
+    process, where it changes nothing."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
-                 subset: Optional[Sequence[int]] = None):
+                 subset: Optional[Sequence[int]] = None,
+                 process_local: bool = False):
         self.dataset = dataset
+        self.process_local = process_local
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -222,6 +229,20 @@ class DataLoader:
                 else:
                     batch[k] = [it[k] for it in items]
             yield batch
+
+
+def create_inpainting_dataloaders(
+    train_dir, val_dir, mask_dir, batch_size=4, img_size=256,
+    mask_mode="serial", seed=42,
+):
+    """Train/val loader pair: a shuffled train loader that drops a ragged
+    last batch, and a sequential val loader that keeps it (one device)."""
+    train_ds = InpaintingDataset(train_dir, mask_dir, "train", img_size, mask_mode, seed)
+    val_ds = InpaintingDataset(val_dir, mask_dir, "val", img_size, mask_mode, seed + 57)
+    return (
+        DataLoader(train_ds, batch_size, shuffle=True, drop_last=True, seed=seed),
+        DataLoader(val_ds, batch_size, shuffle=False, drop_last=False),
+    )
 
 
 def create_inference_dataloader(

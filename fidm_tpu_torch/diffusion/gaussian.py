@@ -15,6 +15,7 @@ Masks are [B, H, W, 1]; `gt_keep_mask` is 1 = keep (known), 0 = generate.
 from __future__ import annotations
 
 import enum
+import math
 from typing import NamedTuple
 
 import torch
@@ -24,6 +25,7 @@ from .schedules import DiffusionSchedule
 __all__ = [
     "ModelMeanType",
     "ModelVarType",
+    "LossType",
     "extract",
     "q_mean_variance",
     "q_sample",
@@ -40,6 +42,11 @@ __all__ = [
     "condition_mean",
     "condition_score",
     "apply_inpainting_injection",
+    "normal_kl",
+    "approx_standard_normal_cdf",
+    "discretized_gaussian_log_likelihood",
+    "mean_flat",
+    "vb_terms_bpd",
 ]
 
 
@@ -64,6 +71,18 @@ class ModelVarType(enum.Enum):
     FIXED_SMALL = enum.auto()
     FIXED_LARGE = enum.auto()
     LEARNED_RANGE = enum.auto()
+
+
+class LossType(enum.Enum):
+    """Training loss."""
+
+    MSE = enum.auto()
+    RESCALED_MSE = enum.auto()
+    KL = enum.auto()
+    RESCALED_KL = enum.auto()
+
+    def is_vb(self):
+        return self in (LossType.KL, LossType.RESCALED_KL)
 
 
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -250,3 +269,64 @@ def apply_inpainting_injection(
     else:
         raise ValueError(f"unknown injection_schedule: {injection_schedule}")
     return torch.where(gate, injected, x)
+
+
+# --------------------------------------------------------------------------
+# likelihood terms of the variational bound
+# --------------------------------------------------------------------------
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL divergence between two diagonal Gaussians, elementwise."""
+    return 0.5 * (
+        -1.0
+        + logvar2
+        - logvar1
+        + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x):
+    """Tanh approximation of the standard normal CDF."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of a Gaussian discretised to the 8-bit bins of [-1, 1]
+    (half-width 1/255), with open outer bins at the edges."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    cdf_delta = cdf_plus - cdf_min
+    return torch.where(
+        x < -0.999,
+        log_cdf_plus,
+        torch.where(x > 0.999, log_one_minus_cdf_min,
+                    torch.log(torch.clamp(cdf_delta, min=1e-12))),
+    )
+
+
+def mean_flat(tensor):
+    """Mean over all non-batch dims."""
+    return tensor.mean(dim=tuple(range(1, tensor.ndim)))
+
+
+def vb_terms_bpd(sched: DiffusionSchedule, model_output, x_start, x_t, t, *,
+                 mean_type: ModelMeanType = ModelMeanType.EPSILON,
+                 var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+                 clip_denoised: bool = True):
+    """The variational-bound term in bits per dimension, per sample: the
+    decoder NLL at t = 0, the KL to the true posterior elsewhere. Returns
+    (term [B], pred_xstart)."""
+    true_mean, _, true_logvar = q_posterior_mean_variance(sched, x_start, x_t, t)
+    out = p_mean_variance(sched, model_output, x_t, t, mean_type=mean_type,
+                          var_type=var_type, clip_denoised=clip_denoised)
+    kl = mean_flat(normal_kl(true_mean, true_logvar, out.mean, out.log_variance))
+    kl = kl / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out.mean, log_scales=0.5 * out.log_variance)
+    decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+    return torch.where(t == 0, decoder_nll, kl), out.pred_xstart

@@ -12,13 +12,19 @@ attention softmax are float32.
 
 `conv` and `linear` apply every convolution and dense layer of the model;
 inside `capture_inputs(fn)` each of them first hands its module and input to
-`fn` (calibration records input statistics there).
+`fn` (calibration records input statistics there), and inside
+`weight_overrides(mapping)` a module found in `mapping` applies that weight
+in place of its own (LoRA training merges its factors so, `lora/lora.py`).
+
+Dropout is off unless a forward passes `deterministic=False`, whatever the
+module's train/eval mode, as in the JAX package, whose train step never
+turns it on.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +34,7 @@ from ..ops.attention import qkv_attention
 
 __all__ = [
     "capture_inputs",
+    "weight_overrides",
     "timestep_embedding",
     "GroupNorm32",
     "Upsample",
@@ -68,11 +75,30 @@ def capture_inputs(fn: Callable[[nn.Module, torch.Tensor, int], None]):
         _capture = prev
 
 
+# module -> the weight `conv` / `linear` apply in its place: see `weight_overrides`
+_weights: Dict[nn.Module, torch.Tensor] = {}
+
+
+@contextlib.contextmanager
+def weight_overrides(mapping: Dict[nn.Module, torch.Tensor]):
+    """Inside the block, `conv` and `linear` apply `mapping[m]`, a tensor of
+    m.weight's shape, in place of m.weight. Gradients flow into the mapped
+    tensors. A backward that recomputes a checkpointed block must run
+    inside the same block, so that the recompute sees the same weights."""
+    global _weights
+    prev, _weights = _weights, {**_weights, **mapping}
+    try:
+        yield
+    finally:
+        _weights = prev
+
+
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """`m` applied in the dtype of `x`."""
     if _capture is not None:
         _capture(m, x, 1)
-    return F.conv2d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), m.stride, m.padding)
+    w = _weights.get(m, m.weight)
+    return F.conv2d(x, w.to(x.dtype), m.bias.to(x.dtype), m.stride, m.padding)
 
 
 def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -80,7 +106,9 @@ def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     proj_out, applied to the last axis of `x` in its dtype."""
     if _capture is not None:
         _capture(m, x, -1)
-    w = m.weight if m.weight.ndim == 2 else m.weight[..., 0]
+    w = _weights.get(m, m.weight)
+    if w.ndim == 3:
+        w = w[..., 0]
     return F.linear(x, w.to(x.dtype), m.bias.to(x.dtype))
 
 
@@ -155,7 +183,7 @@ class ResBlock(nn.Module):
         self.skip_connection = (nn.Identity() if out_ch == channels
                                 else nn.Conv2d(channels, out_ch, 1))
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, deterministic: bool = True):
         h = F.silu(self.in_layers[0](x))
         if self.up:
             h, x = _upsample(h), _upsample(x)
@@ -170,7 +198,7 @@ class ResBlock(nn.Module):
             h = out_norm(h) * (1 + scale) + shift
         else:
             h = out_norm(h + emb_out)
-        h = self.out_layers[2](F.silu(h))
+        h = F.dropout(F.silu(h), self.out_layers[2].p, training=not deterministic)
         h = conv(self.out_layers[3], h)
 
         skip = self.skip_connection

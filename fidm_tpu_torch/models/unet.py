@@ -5,15 +5,26 @@ bookkeeping follow the JAX `UNet` line for line; the modules are laid out as
 ADM's `input_blocks` / `middle_block` / `output_blocks` lists so that the
 state dict carries the ADM torch keys. The public contract is the JAX one:
 NHWC inputs, NHWC float32 output; inside, the model runs NCHW.
+
+Rematerialisation (`UNetConfig.remat`, under autograd only) wraps each
+ResBlock and AttentionBlock in `torch.utils.checkpoint` (non-reentrant):
+`remat_policy="full"` recomputes the whole block in the backward;
+`"convs"` saves every convolution's output and recomputes the GroupNorm,
+SiLU, embedding and attention glue around them. The JAX policy also saves
+the attention block's output projection, whose backward needs only its
+input, so there too the attention itself runs again: both policies launch
+the attention kernel once more per block in the backward.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from .layers import (
     AttentionBlock,
@@ -50,11 +61,22 @@ class UNetConfig:
     # activation dtype; parameters stay float32 and the final conv runs in
     # float32 whatever this is
     dtype: torch.dtype = torch.bfloat16
+    # rematerialisation of each ResBlock and AttentionBlock under autograd;
+    # remat_policy "full" or "convs" (see the module docstring)
+    remat: bool = False
+    remat_policy: str = "full"
 
 
 def ffhq256_config(**overrides) -> UNetConfig:
     """The canonical FFHQ-256 fine-tuning architecture."""
     return dataclasses.replace(UNetConfig(), **overrides)
+
+
+def _save_convolutions(ctx, op, *args, **kwargs):
+    """The "convs" policy: keep convolution outputs, recompute the rest."""
+    if op is torch.ops.aten.convolution.default:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class UNet(nn.Module):
@@ -63,6 +85,8 @@ class UNet(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
+        if cfg.remat and cfg.remat_policy not in ("full", "convs"):
+            raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r}")
         mc = cfg.model_channels
         ted = mc * 4
         heads_up = cfg.num_heads if cfg.num_heads_upsample == -1 else cfg.num_heads_upsample
@@ -117,16 +141,31 @@ class UNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  zero_module(nn.Conv2d(ch, cfg.out_channels, 3, padding=1)))
 
-    @staticmethod
-    def _run(block: nn.ModuleList, h, emb):
+    def _run(self, block: nn.ModuleList, h, emb, deterministic: bool = True):
+        cfg = self.config
         for layer in block:
-            h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+            if isinstance(layer, ResBlock):
+                args = (h, emb, deterministic)
+            elif isinstance(layer, AttentionBlock):
+                args = (h,)
+            else:
+                h = layer(h)
+                continue
+            if cfg.remat and torch.is_grad_enabled():
+                context = (functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                             _save_convolutions)
+                           if cfg.remat_policy == "convs" else torch_checkpoint.noop_context_fn)
+                h = torch_checkpoint.checkpoint(layer, *args, use_reentrant=False,
+                                                context_fn=context)
+            else:
+                h = layer(*args)
         return h
 
-    def forward(self, x, timesteps, y=None, *, cache=None, return_cache: bool = False,
-                cache_depth: Optional[int] = None):
+    def forward(self, x, timesteps, y=None, *, deterministic: bool = True, cache=None,
+                return_cache: bool = False, cache_depth: Optional[int] = None):
         """x: [B, H, W, C] NHWC; timesteps: [B]. Returns [B, H, W, out] float32,
-        or (output, cache) with `return_cache=True`.
+        or (output, cache) with `return_cache=True`. `deterministic=False`
+        turns dropout on.
 
         Cross-step feature reuse, as the JAX `UNet`: `return_cache=True` makes
         a key call publish its features and `cache=...` makes a call consume
@@ -169,10 +208,10 @@ class UNet(nn.Module):
             h = conv(self.input_blocks[0][0], x.permute(0, 3, 1, 2).to(dtype))
             hs = [h]
             for block in self.input_blocks[1:stop]:
-                h = self._run(block, h, emb)
+                h = self._run(block, h, emb, deterministic)
                 hs.append(h)
             if not deep_cached:
-                h = self._run(self.middle_block, h, emb)
+                h = self._run(self.middle_block, h, emb, deterministic)
         else:
             h_mid, skips = cache
             # a new list: the decoder pops it, and the cache serves every
@@ -188,7 +227,8 @@ class UNet(nn.Module):
         for i in range(start, len(self.output_blocks)):
             if return_cache and i == branch:
                 new_cache = h
-            h = self._run(self.output_blocks[i], torch.cat([h, hs.pop()], dim=1), emb)
+            h = self._run(self.output_blocks[i], torch.cat([h, hs.pop()], dim=1), emb,
+                          deterministic)
         assert not hs
 
         h = F.silu(self.out[0](h))
@@ -200,9 +240,9 @@ class InpaintingUNet(UNet):
     """Mask-aware 9-channel UNet: the input is [noisy(3) | masked(3) | mask x3]
     on the channel axis. Its state dict is the base UNet's, with ADM keys."""
 
-    def forward(self, x, t, masked_image, mask, y=None, *, cache=None,
-                return_cache: bool = False, cache_depth: Optional[int] = None):
+    def forward(self, x, t, masked_image, mask, y=None, *, deterministic: bool = True,
+                cache=None, return_cache: bool = False, cache_depth: Optional[int] = None):
         mask3 = mask.expand(*mask.shape[:-1], 3)
         inp = torch.cat([x, masked_image.to(x.dtype), mask3.to(x.dtype)], dim=-1)
-        return super().forward(inp, t, y, cache=cache, return_cache=return_cache,
-                               cache_depth=cache_depth)
+        return super().forward(inp, t, y, deterministic=deterministic, cache=cache,
+                               return_cache=return_cache, cache_depth=cache_depth)

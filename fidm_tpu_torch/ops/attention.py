@@ -19,7 +19,11 @@ result comes back in the input dtype.
 
 `qkv_attention` launches the kernel for CUDA tensors and takes the plain
 version for CPU tensors (see `registry`). Its backward recomputes through the
-plain version, as the JAX custom VJP does.
+plain version and differentiates it, as the JAX custom VJP takes the VJP of
+its einsum reference: on a CUDA tensor this is the one place where the plain
+version runs on the card outside `kernel_override(False, ...)`, and it
+launches no kernel (training counts 4 forward launches per UNet forward and
+none in the backward).
 """
 from __future__ import annotations
 
@@ -167,7 +171,7 @@ def _attention_forward(q, k, v):
 
 class _Attention(torch.autograd.Function):
     """Kernel (or plain) forward; the backward recomputes the plain version
-    and differentiates it."""
+    and differentiates it, on the card too (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, q, k, v):

@@ -5,7 +5,8 @@ Counterpart of `fidm_tpu/ops/registry.py`. The default follows the tensor:
 CUDA tensors launch the kernel, CPU tensors take the plain PyTorch version
 (there is no kernel for the CPU). The plain version runs on a CUDA tensor
 only inside an explicit `kernel_override(False, op)` block, which is how a
-kernel is held against its plain version on the card.
+kernel is held against its plain version on the card, with one exception:
+the attention backward recomputes the plain version (`ops/attention.py`).
 """
 from __future__ import annotations
 

@@ -201,6 +201,80 @@ def test_backward_recomputes_plain(cuda):
         torch.testing.assert_close(g, a.grad, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_backward_launches_no_kernel(cuda, dtype):
+    """Under autograd the forward launches the kernel once; the backward
+    recomputes the plain version (the one place it runs on the card outside
+    kernel_override) and launches nothing: its gradients are the plain
+    version's autograd, bit for bit, on the same inputs."""
+    q, k, v = (a.requires_grad_() for a in _qkv((2, 4, 256, 64), 13, dtype, cuda))
+    up = _qkv((2, 4, 256, 64), 14, dtype, cuda)[0]
+    before = LAUNCHES["attention"]
+    out = qkv_attention(q, k, v)
+    assert LAUNCHES["attention"] == before + 1
+    grads = torch.autograd.grad(out, (q, k, v), up)
+    assert LAUNCHES["attention"] == before + 1
+    refs = [a.detach().requires_grad_() for a in (q, k, v)]
+    ref_grads = torch.autograd.grad(port_attention._attention_reference(*refs), refs, up)
+    for g, r in zip(grads, ref_grads):
+        assert torch.equal(g, r)
+
+
+def test_small_train_step_on_the_card(cuda):
+    """A bf16 train step of a small UNet: the kernel once per attention block
+    in the forward, none in the backward, and the same loss and gradient
+    norm (to bf16 rounding of the forward) as with the plain attention; the
+    remat policies give the same step, with the forward launched again."""
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.models import InpaintingUNet
+    from fidm_tpu_torch.training import (TrainState, make_lr_schedule, make_optimizer,
+                                         make_train_step)
+
+    cfg = UNetConfig(image_size=32, model_channels=64, channel_mult=(1, 2),
+                     attention_resolutions=(2,), num_head_channels=64)
+    torch.manual_seed(0)
+    model = InpaintingUNet(cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    model = model.to(cuda)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
+    rng = np.random.default_rng(0)
+    img = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    mask = np.zeros((2, 32, 32, 1), np.float32)
+    mask[:, 8:24, 8:24] = 1.0
+    batch = {"image": img, "masked_image": img * (1 - mask), "mask": mask}
+    step = make_train_step(DiffusionSchedule.create("quadratic", 1000, device="cuda"))
+
+    def one(policy="none", plain=False):
+        model.load_state_dict(base)
+        model.config = dataclasses.replace(cfg, remat=policy != "none",
+                                           remat_policy=policy if policy != "none" else "full")
+        state = TrainState.create(model, dict(model.named_parameters()),
+                                  make_optimizer(make_lr_schedule("none", 1e-4, 1)))
+        before = LAUNCHES["attention"]
+        if plain:
+            with kernel_override(False, "attention"):
+                _, m = step(state, batch, 3)
+        else:
+            _, m = step(state, batch, 3)
+        return {k: v.item() for k, v in m.items()}, LAUNCHES["attention"] - before
+
+    kernel, launches = one()
+    assert launches == n_attn and np.isfinite(kernel["loss"])
+    plain, plain_launches = one(plain=True)
+    assert plain_launches == 0
+    for key in ("loss", "grad_norm"):
+        assert abs(kernel[key] - plain[key]) <= 5e-2 * abs(plain[key]), key
+    for policy in ("full", "convs"):
+        m, launches = one(policy)
+        assert launches == 2 * n_attn, policy
+        for key in ("loss", "grad_norm"):
+            assert abs(m[key] - kernel[key]) <= 1e-3 * abs(kernel[key]), (policy, key)
+    model.config = cfg
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 2, 16, 64), 7, torch.float32, cuda)
     with pytest.raises(TypeError):

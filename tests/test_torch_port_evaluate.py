@@ -563,8 +563,10 @@ def test_evaluate_empty_mask_samples_stay_aligned(tmp_path):
 
 
 def test_unported_branches_raise_before_building(data_tree, tmp_path, monkeypatch):
-    """Orbax directories and the program cache raise NotImplementedError
-    naming what is missing, before a model is built; `--fid_stats` without
+    """A checkpoint directory without a checkpoint raises FileNotFoundError,
+    the program cache NotImplementedError naming what is missing, before a
+    model is built (training checkpoint directories are read since training
+    was ported: tests/test_torch_port_training.py); `--fid_stats` without
     `--fid_weights` raises ValueError as in JAX. (`--save_trajectory` and the
     repaint and unipc presets run since the rest of sampling was ported:
     test_save_trajectory_and_the_new_presets.)"""
@@ -576,9 +578,9 @@ def test_unported_branches_raise_before_building(data_tree, tmp_path, monkeypatc
     base = ["--data_dir", img_dir, "--mask_dir", mask_dir, "--output_dir",
             str(tmp_path / "never"), *RUN]
     (tmp_path / "orbax").mkdir()
-    cases = [(["--checkpoint", str(tmp_path / "orbax")], NotImplementedError, "orbax"),
-             (["--checkpoint", str(tmp_path / "orbax"), "--use_ema"], NotImplementedError,
-              "orbax"),
+    cases = [(["--checkpoint", str(tmp_path / "orbax")], FileNotFoundError, "no checkpoints"),
+             (["--checkpoint", str(tmp_path / "orbax"), "--use_ema"], FileNotFoundError,
+              "no checkpoints"),
              (["--program_cache", str(tmp_path / "aot")], NotImplementedError,
               "--program_cache"),
              (["--fid_stats", "s.npz"], ValueError, "--fid_weights")]

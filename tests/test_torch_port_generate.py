@@ -6,7 +6,8 @@ package's.
 images are the port's own `sample()` on the same model and noise (each
 batch's `GeneratorNoise` from the seed and the batch's offset: the JAX CLI
 folds the offset into a threefry key, which torch cannot draw); a native
-checkpoint directory is refused before a model is built. `visualize_noise`
+checkpoint directory without a checkpoint is refused before a model is
+built (training checkpoint directories themselves: tests/test_torch_port_training.py). `visualize_noise`
 prints the JAX CLI's SNR table digit for digit. Both run here on a tiny
 model or image with `--device cpu`. Torch runs on one intra-op thread here.
 """
@@ -117,7 +118,8 @@ def test_generate_refuses_a_checkpoint_directory_before_building(tmp_path, monke
         raise AssertionError("built a model")
 
     monkeypatch.setattr(port_generate, "build_model", never)
-    with pytest.raises(NotImplementedError, match="training"):
+    monkeypatch.setattr(port_generate, "build_checkpoint_model", never)
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         port_generate.main(["--checkpoint", str(tmp_path), "--output_dir",
                             str(tmp_path / "never"), "--device", "cpu"])
     assert not (tmp_path / "never").exists()

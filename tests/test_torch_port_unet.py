@@ -127,8 +127,9 @@ def test_parameter_names_are_adm_keys():
 
 def test_config_defaults_match_jax():
     """`UNetConfig()` is the canonical FFHQ-256 model in both packages; the
-    port drops only the JAX-side remat and split-skip options."""
-    jax_only = {"dtype", "remat", "remat_policy", "split_decoder_skips"}
+    port drops only the JAX-side split-skip option (remat and remat_policy
+    came with training)."""
+    jax_only = {"dtype", "split_decoder_skips"}
     ours, ref = dataclasses.asdict(ffhq256_config()), dataclasses.asdict(jax_ffhq256_config())
     assert {k: v for k, v in ref.items() if k not in jax_only} == {
         k: v for k, v in ours.items() if k != "dtype"}
