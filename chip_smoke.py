@@ -85,10 +85,23 @@ Phases, one line each (or a few), any failure exits non-zero:
    then one train step with the kernel against the plain attention, and the
    remat policies none / convs / full (loss, gradient norm, launches, peak
    memory, ms per step);
-11. a JSON line of the kernels, then the contract line
+11. the warm program cache at full width on phase 3's model and inputs:
+   `compile_batch` / `install_program` programs (CUDA graphs of one whole
+   sampler call) for `ddim-100` and `dpm-25-sde` at batch 4 with one seed
+   and with per-row seeds, and for `ddim-100-deep` and `ddim-100` at
+   bench.py's batch 16, each replay bit-equal to the eager call, with its
+   attention launches, times (capture, replay, the host's buffer fill) and
+   memory; one replay's kernels in the profiler; `serving.serve` with a
+   program cache directory over phase 6's presets and ladder, restarted on
+   it (every manifest loaded, none written), replies bit-equal to the eager
+   pipeline, an instrumented batch of 8, a corrupt manifest healed;
+   `cli.evaluate --program_cache` against the run without it; then
+   `cast_params(torch.bfloat16)` and `split_decoder_skips` forwards against
+   their float32 and concatenating counterparts;
+12. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
-Both TF32 switches are off in phases 1-7 and 9, so float32 products and
+Both TF32 switches are off in phases 1-7, 9 and 11, so float32 products and
 convolutions are full float32 wherever numbers are compared. Phases 8 and 10
 run the CLIs under torch's own switches, as a user's process has them: there
 the metric networks keep full float32 by their own scoping, which its gates
@@ -97,6 +110,7 @@ this file, it exits non-zero and prints no result.
 """
 import collections
 import dataclasses
+import gc
 import hashlib
 import io
 import itertools
@@ -236,6 +250,21 @@ EVAL_PER_SAMPLE = {"ssim", "psnr", "hole_ssim", "hole_psnr"}
 # Phase 9: the reference's published DDPM-1000 time per sample (unspecified
 # GPU, ROADMAP.md "Source paper"), printed beside the port's.
 REFERENCE_DDPM1000_S = 33.41
+# Phase 11. One UNet forward with the parameters cast to bf16
+# (`cast_params`) against the float32 parameters, both with bf16
+# activations, max abs / max |float32 parameters|: each weight moves by at
+# most 2^-9 of itself, less than the int8 step of QUANT_UNET_TOL, and the
+# activations are rounded to bf16 either way; held to the bf16 forward bound
+# of phase 4.
+CAST_UNET_TOL = 5e-2
+# `split_decoder_skips` against the concatenating forward on the same
+# weights, max abs / max |concat|: in float32 the sums of the half-kernel
+# convolutions and the one-pass GroupNorm statistics in another order (the
+# phase-4 float32 bound); in bf16 the split path also normalises each half
+# in bf16 where GroupNorm32 does it in float32 (the JAX package's own bf16
+# bound, tests/test_unet.py).
+SPLIT_F32_TOL = 1e-4
+SPLIT_BF16_TOL = 5e-2
 
 
 def fail(msg):
@@ -879,7 +908,8 @@ def batch_witness(torch, np, pipe, label, cfg, inputs, rows, seeds, k, first, al
 
 def phase_serving(torch, np, ckpt, pipe, n_attn, smi):
     """Phase 6: the serving path at full width, through `cli.serve`'s flags,
-    presets and `build_pipeline`, and `serving.serve`, over HTTP."""
+    presets and `build_pipeline`, and `serving.serve`, over HTTP. Returns the
+    warm-up's seconds and the instrumented batch of 8's phase times."""
     from fidm_tpu_torch.cli import serve as serve_cli
     from fidm_tpu_torch.ops import LAUNCHES
     from fidm_tpu_torch.sampling.sampler import GeneratorNoise, _dpm_tables
@@ -1096,8 +1126,9 @@ def phase_serving(torch, np, ckpt, pipe, n_attn, smi):
     finally:
         server.close()
     check(all(np.isfinite(o).all() for o in outs), "instrumented pass: non-finite output")
+    batch8 = phases_line(snap8)
     print(f"[6] instrumented pass, dpm-25-sde: batch of 8 ({snap8['batches_by_size']}): "
-          f"{phases_line(snap8)}; then a batch of 1: {phases_line(snap, snap8)}; {smi}",
+          f"{batch8}; then a batch of 1: {phases_line(snap, snap8)}; {smi}",
           flush=True)
 
     # --- the host cost of per-row seeds
@@ -1121,6 +1152,7 @@ def phase_serving(torch, np, ckpt, pipe, n_attn, smi):
           f"time per batch-8 call with per-row seeds; {smi}", flush=True)
     del spipe
     torch.cuda.empty_cache()
+    return warm_s, batch8
 
 
 def cached_forwards(torch, model, n_attn, args):
@@ -1220,17 +1252,15 @@ def bench_line(torch, np, pipe, n_attn, smi):
     BENCH_REPEATS timed calls ending in a synchronize), exact `ddim-100` the
     same way as its anchor. The timed calls' attention launches are held to
     the keymask's count and each image to `check_images`; then one line in
-    bench.py's schema, the numbers unrounded."""
+    bench.py's schema, the numbers unrounded. Returns each preset's first
+    timed output (seed 1, on the host) and seconds per call."""
     from fidm_tpu_torch import SAMPLER_PRESETS
     from fidm_tpu_torch.ops import LAUNCHES
 
     S = pipe.config.unet.image_size
-    rng = np.random.default_rng(0)
-    gt = torch.from_numpy(np.clip(rng.standard_normal((BENCH_BATCH, S, S, 3)) * 0.5, -1, 1)
-                          .astype(np.float32)).to(pipe.device)
-    mask = torch.zeros((BENCH_BATCH, S, S, 1), device=pipe.device)
-    mask[:, S // 4:3 * S // 4, S // 4:3 * S // 4] = 1.0
+    gt, mask = bench_inputs(torch, np, S)
     keep = mask[..., 0] < 0.5
+    firsts = {}
 
     def per_sample(name):
         cfg = SAMPLER_PRESETS[name]
@@ -1251,6 +1281,7 @@ def bench_line(torch, np, pipe, n_attn, smi):
               f"bench {name}: attention launches {launches} != {expect} of the bf16 kernel")
         for i, out in enumerate(outs):
             check_images(torch, f"[7] bench {name} B={BENCH_BATCH} seed {i + 1}", out, gt, keep)
+        firsts[name] = (outs[0].cpu(), dt / BENCH_REPEATS)
         return dt / (BENCH_REPEATS * BENCH_BATCH), peak
 
     deep = SAMPLER_PRESETS["ddim-100-deep"]
@@ -1267,6 +1298,18 @@ def bench_line(torch, np, pipe, n_attn, smi):
         "encoder_cache_period": deep.encoder_cache_period,
         "encoder_cache_tail": deep.encoder_cache_tail, "cache_branch": deep.cache_branch,
         "exact_time_per_sample_s": exact_tps}), flush=True)
+    return firsts
+
+
+def bench_inputs(torch, np, size):
+    """`bench.py`'s inputs at batch BENCH_BATCH, clipped to [-1, 1] as images
+    are, and its centred box mask, on the card."""
+    rng = np.random.default_rng(0)
+    gt = torch.from_numpy(np.clip(rng.standard_normal((BENCH_BATCH, size, size, 3)) * 0.5, -1, 1)
+                          .astype(np.float32)).cuda()
+    mask = torch.zeros((BENCH_BATCH, size, size, 1), device="cuda")
+    mask[:, size // 4:3 * size // 4, size // 4:3 * size // 4] = 1.0
+    return gt, mask
 
 
 def write_eval_tree(np, root, size, n, seed):
@@ -2172,6 +2215,339 @@ def phase_training(torch, np, ckpt, n_attn, smi):
     return total["attention.bf16"]
 
 
+def program_memory(torch, build):
+    """(result of `build()`, device bytes it left reserved): the caching
+    allocator's reserve after `empty_cache`, before and after."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    result = build()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return result, torch.cuda.memory_reserved() - before
+
+
+def fill_seconds(torch, program, seed):
+    """Host seconds of a program call's buffer fill alone: every draw's
+    buffer filled from `GeneratorNoise(seed)`, as the call does it."""
+    from fidm_tpu_torch.sampling import GeneratorNoise
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        noise = GeneratorNoise(seed, program.device)
+        for (stream, index), buf in program.draws.items():
+            noise.fill(stream, index, buf)
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs
+
+
+def launches_of(fn):
+    """(fn(), the kernel launches it counted), LAUNCHES left running."""
+    from fidm_tpu_torch.ops import LAUNCHES
+
+    before = collections.Counter(LAUNCHES)
+    result = fn()
+    diff = collections.Counter(LAUNCHES)
+    diff.subtract(before)
+    return result, {k: v for k, v in sorted(diff.items()) if v}
+
+
+def phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi):
+    """Phase 11: the warm program cache at full width, on phase 3's model
+    (phase 5's `.pt`) and inputs, both TF32 switches off. `refs` holds eager
+    outputs and seconds of earlier phases: phase 3's DDIM-100 and
+    `dpm-25-sde` at batch 4 with seed 0, phase 7's `ddim-100-deep` and
+    `ddim-100` at batch 16 with seed 1. `serving6` is phase 6's warm-up
+    seconds and instrumented batch of 8. Returns the bf16 attention launches
+    of the phase's replays and calls."""
+    from fidm_tpu_torch import SAMPLER_PRESETS, InpaintingPipeline, PipelineConfig
+    from fidm_tpu_torch.cli import evaluate as evaluate_cli
+    from fidm_tpu_torch.cli import serve as serve_cli
+    from fidm_tpu_torch.models import InpaintingUNet
+    from fidm_tpu_torch.models.weights import load_adm_checkpoint
+    from fidm_tpu_torch.ops import LAUNCHES
+    from fidm_tpu_torch.serving import aot, serve
+
+    t_phase = time.perf_counter()
+    launched = LAUNCHES["attention.bf16"]
+    config = PipelineConfig()
+    size = config.unet.image_size
+    pipe = InpaintingPipeline.create(config, checkpoint=str(ckpt), device="cuda")
+    gt, mask = main_inputs(torch, size)
+    keep = mask[..., 0] < 0.5
+
+    # --- the pipeline's programs: batch 4, one seed and per-row seeds
+    def program_run(label, name, gt, mask, keep, seed, ref, eager_s, expect):
+        """Build, install and call the program of (preset, batch, seed
+        layout), held to the eager call `ref` (run here when None); then
+        uninstall it and return it."""
+        cfg = SAMPLER_PRESETS[name]
+        batch, batched = gt.shape[0], not isinstance(seed, int)
+        if ref is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = pipe.inpaint(gt, mask, seed, sampler=cfg)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+        program, held = program_memory(
+            torch, lambda: pipe.compile_batch(batch, cfg, batched_key=batched))
+        check(isinstance(program.graph, torch.cuda.CUDAGraph),
+              f"{label}: the program holds no captured CUDA graph")
+        pipe.install_program(batch, cfg, program, batched)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = launches_of(lambda: pipe.inpaint(gt, mask, seed, sampler=cfg))
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        fill_s = fill_seconds(torch, program, seed)
+        same = torch.equal(out.cpu(), ref.cpu())
+        print(f"{label}: replay {call_s:.4f} s per call ({call_s / batch:.4f} s per sample), "
+              f"eager {eager_s:.4f} s ({eager_s / batch:.4f}); recording run "
+              f"{program.record_s:.3f} s, capture {program.capture_s:.3f} s; the call on the "
+              f"host: buffer fill {fill_s * 1e3:.2f} ms (timed alone), the replay's launch and "
+              f"the rest {(host_s - fill_s) * 1e3:.2f} ms, then the device's tail "
+              f"{(call_s - host_s) * 1e3:.2f} ms; "
+              f"{len(program.draws)} draws, static buffers {program.static_bytes} bytes, "
+              f"device memory the program holds {held} bytes (graph pool about "
+              f"{held - program.static_bytes}); launches per replay {launches} "
+              f"(recorded {dict(program.launches)}); bit-equal to the eager call: {same}",
+              flush=True)
+        check(same, f"{label}: the replay differs from the eager call")
+        check(launches.get("attention") == launches.get("attention.bf16") == expect,
+              f"{label}: attention launches per replay {launches}, not {expect} of the bf16 "
+              f"kernel")
+        check_images(torch, label, out, gt, keep)
+        pipe.uninstall_program(batch, cfg, batched)
+        return program
+
+    seeds = [10, 11, 12, 13]
+    expect = {name: attention_per_call(pipe.sched, SAMPLER_PRESETS[name], n_attn)
+              for name in ("ddim-100", "dpm-25-sde", "ddim-100-deep")}
+    print(f"[11] programs: attention launches per call from the host tables {expect}; "
+          f"{smi}", flush=True)
+    (ref0, ddim_s), (ref_sde, sde_s) = refs["ddim-100"], refs["dpm-25-sde"]
+    ddim_program = program_run(f"[11] ddim-100 B={BATCH} one seed", "ddim-100", gt, mask, keep,
+                               0, ref0, ddim_s, expect["ddim-100"])
+    program_run(f"[11] ddim-100 B={BATCH} per-row seeds", "ddim-100", gt, mask, keep, seeds,
+                None, None, expect["ddim-100"])
+    program_run(f"[11] dpm-25-sde B={BATCH} one seed", "dpm-25-sde", gt, mask, keep, 0,
+                ref_sde, sde_s, expect["dpm-25-sde"])
+    program_run(f"[11] dpm-25-sde B={BATCH} per-row seeds", "dpm-25-sde", gt, mask, keep,
+                seeds, None, None, expect["dpm-25-sde"])
+
+    # one ddim-100 replay in the profiler: the kernel's own symbol, no softmax
+    events = profiled_calls(torch, lambda: ddim_program(gt, mask, 0), 1, 3)
+    if events is None:
+        fail("[11] the profiler recorded no device operation of a ddim-100 replay in 3 "
+             "sessions")
+    names = collections.Counter()
+    for e in events:
+        names[e.key] += e.count
+    attn = sum(n for k, n in names.items() if "attention_fwd_kernel" in k)
+    softmax = sum(n for k, n in names.items() if "softmax" in k.lower())
+    print(f"[11] torch.profiler over one ddim-100 replay: {sum(names.values())} device "
+          f"operations, attention_fwd_kernel {attn} (kernels "
+          f"{sorted({k[:60] for k in names if 'attention_fwd_kernel' in k})}), softmax "
+          f"kernels {softmax}", flush=True)
+    check(attn == expect["ddim-100"] and softmax == 0,
+          f"[11] a ddim-100 replay ran {attn} attention kernels and {softmax} softmax "
+          f"kernels, not {expect['ddim-100']} and 0")
+    del ddim_program
+
+    # bench.py's cell: batch 16, against phase 7's first timed call (seed 1)
+    bgt, bmask = bench_inputs(torch, np, size)
+    bkeep = bmask[..., 0] < 0.5
+    for name in ("ddim-100-deep", "ddim-100"):
+        ref, secs = refs[f"bench {name}"]
+        program_run(f"[11] {name} B={BENCH_BATCH} one seed (bench.py's cell)", name, bgt,
+                    bmask, bkeep, 1, ref, secs, expect[name])
+    del bgt, bmask
+
+    # --- the server: phase 6's flags, presets and ladder, a program cache
+    args = serve_cli.parse_args(["--checkpoint", str(ckpt)] + SERVE_ARGV)
+    presets = serve_cli.build_presets(args)
+    n_programs = len(presets) * len(SERVE_BATCHES)
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_programs_") as cache:
+        cache = Path(cache)
+
+        def start(**kw):
+            spipe = serve_cli.build_pipeline(args, presets)
+            kw = {"max_wait_ms": args.max_wait_ms, **kw}
+            t0 = time.perf_counter()
+            (httpd, dispatcher), held = program_memory(torch, lambda: serve(
+                spipe, args.host, args.port, args.batch_size,
+                batch_sizes=tuple(args.batch_sizes), base_seed=args.base_seed, warmup=True,
+                program_cache_dir=str(cache), presets=presets, **kw))
+            return spipe, httpd, dispatcher, time.perf_counter() - t0, held
+
+        def stamps():
+            return {p.name: p.stat().st_mtime_ns for p in cache.glob("prog_b*.json")}
+
+        def installed(spipe):
+            return [p for p in (spipe.installed_program(b, cfg, True) for cfg in
+                                presets.values() for b in SERVE_BATCHES) if p is not None]
+
+        spipe, httpd, dispatcher, warm_s, held = start()
+        httpd.server_close()
+        dispatcher.close()
+        written, programs = stamps(), installed(spipe)
+        static = sum(p.static_bytes for p in programs)
+        print(f"[11] serve(..., warmup=True, program_cache_dir=DIR) with phase 6's presets "
+              f"{list(presets)} and batch sizes {SERVE_BATCHES}: warm-up {warm_s:.2f} s "
+              f"(phase 6, eager: {serving6[0]:.2f} s); {len(written)} manifests written; "
+              f"{len(programs)} programs installed, holding {held} bytes of device memory "
+              f"({static} of it static buffers); {smi}", flush=True)
+        check(len(written) == n_programs and len(programs) == n_programs,
+              f"[11] {len(written)} manifests and {len(programs)} programs, not {n_programs}")
+        del spipe, httpd, dispatcher, programs
+        torch.cuda.empty_cache()
+
+        # a restart on the same directory: every program built from its manifest
+        spipe, httpd, dispatcher, warm2_s, held = start(
+            instrument=True, adaptive_wait=False, max_wait_ms=500)
+        try:
+            n_installed = len(installed(spipe))
+            print(f"[11] restart on the same directory: warm-up {warm2_s:.2f} s, manifests "
+                  f"untouched: {stamps() == written}, {n_installed} programs installed, "
+                  f"holding {held} bytes", flush=True)
+            check(stamps() == written, "[11] the restarted server wrote manifests")
+            check(n_installed == n_programs, f"[11] the restart installed {n_installed} programs")
+            eager = InpaintingPipeline(spipe.model, spipe.sched, spipe.config)  # no program
+            inputs = [request_inputs(np, j, size) for j in range(8)]
+            futs = [dispatcher.submit(*inputs[j], seed=3000 + j, preset="dpm-25-sde")
+                    for j in range(8)]
+            outs = np.stack([f.result(timeout=300) for f in futs])
+            snap8 = dispatcher.stats_snapshot()
+            check(snap8["batches_by_size"][8] == 1, f"[11] batches {snap8['batches_by_size']}")
+            requests = [("dpm-25-sde", list(range(8)), outs)]
+            for j, name in enumerate(("ddim-100", "ddim-100-deep", "refine")):
+                out = dispatcher.submit(*inputs[j], seed=3100 + j,
+                                        preset=name).result(timeout=300)
+                requests.append((name, [j], out[None]))
+            for name, rows, got in requests:
+                seeds_r = ([3000 + j for j in rows] if name == "dpm-25-sde"
+                           else [3100 + rows[0]])
+                ref = eager.inpaint(np.stack([inputs[j][0] for j in rows]),
+                                    np.stack([inputs[j][1] for j in rows]), seeds_r,
+                                    sampler=presets[name]).cpu().numpy()
+                same = np.array_equal(got, ref)
+                print(f"[11] {name} request(s) {rows}, batch of {len(rows)}: bit-equal to "
+                      f"the eager pipeline at that batch size and seeds: {same}", flush=True)
+                check(same, f"[11] a {name} reply differs from the eager call")
+            print(f"[11] instrumented batch of 8, dpm-25-sde, replayed: {phases_line(snap8)} "
+                  f"(phase 6, eager: {serving6[1]}); {smi}", flush=True)
+        finally:
+            httpd.server_close()
+            dispatcher.close()
+
+        # a corrupt manifest is removed, then written again
+        path = Path(aot.program_path(str(cache), spipe, 1, presets["refine"], batched_key=True))
+        path.write_text("{not json")
+        fresh = InpaintingPipeline(spipe.model, spipe.sched, spipe.config)
+        del spipe, httpd, dispatcher, eager
+        torch.cuda.empty_cache()
+        n_loaded = aot.load_programs(fresh, str(cache), [1], presets["refine"], batched_key=True)
+        removed = not path.exists()
+        n_saved = aot.save_programs(fresh, str(cache), [1], presets["refine"], batched_key=True)
+        print(f"[11] corrupt manifest: loaded {n_loaded}, removed {removed}, then saved "
+              f"{n_saved}, present again {path.exists()}", flush=True)
+        check(n_loaded == 0 and removed and n_saved == 1 and path.exists(),
+              "[11] the corrupt manifest was not healed")
+        del fresh
+        torch.cuda.empty_cache()
+
+    # --- cli.evaluate --program_cache on phase 8's images, 10 steps
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_programs_eval_") as tmp:
+        tmp = Path(tmp)
+        img_dir, mask_root, _ = write_eval_tree(np, tmp, size, EVAL_SAMPLES, seed=5)
+        blobs = {}
+        for label, extra in (("without the flag", []),
+                             ("--program_cache DIR (written)", ["--program_cache",
+                                                                str(tmp / "cache")]),
+                             ("--program_cache DIR (loaded)", ["--program_cache",
+                                                               str(tmp / "cache")])):
+            out = tmp / f"run{len(blobs)}"
+            t0 = time.perf_counter()
+            results, launches = launches_of(lambda: evaluate_cli.main(
+                ["--data_dir", str(img_dir), "--mask_dir", str(mask_root), "--device", "cuda",
+                 "--checkpoint", str(ckpt), "--ddim_timesteps", str(QUICK_STEPS),
+                 "--num_samples", str(EVAL_SAMPLES), "--batch_size", str(EVAL_BATCH),
+                 "--no_save_images", "--output_dir", str(out), *extra]))
+            secs = time.perf_counter() - t0
+            with open(out / "metrics.json") as f:
+                blob = json.load(f)
+            for k in ("time_per_sample_s", "time_per_sample_steady_s"):
+                blob.pop(k)
+            blobs[label] = blob
+            print(f"[11] cli.evaluate {label}, {EVAL_SAMPLES} images, {QUICK_STEPS} steps: "
+                  f"{secs:.3f} s wall, time_per_sample_s {results['time_per_sample_s']:.6f}, "
+                  f"steady {results['time_per_sample_steady_s']:.6f}; launches {launches}",
+                  flush=True)
+        plain = blobs.pop("without the flag")
+        same = all(b == plain for b in blobs.values())
+        print(f"[11] cli.evaluate: metrics.json with --program_cache equal to the run without "
+              f"it (timings aside): {same}", flush=True)
+        check(same, "[11] cli.evaluate --program_cache changed metrics.json")
+
+    # --- cast_params(bf16): one forward against float32 parameters
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    x = torch.randn(gt.shape, device="cuda", generator=g)
+    t = torch.full((BATCH,), 500, device="cuda", dtype=torch.int32)
+    masked = gt * keep[..., None]
+    cast = InpaintingPipeline.create(config, checkpoint=str(ckpt), device="cuda")
+    cast.cast_params(torch.bfloat16)
+    with torch.inference_mode():
+        y32, y16 = pipe.model(x, t, masked, mask), cast.model(x, t, masked, mask)
+    e_cast = ((y16 - y32).abs().max() / y32.abs().max()).item()
+    bytes32 = sum(p.nbytes for p in pipe.model.parameters())
+    bytes16 = sum(p.nbytes for p in cast.model.parameters())
+    print(f"[11] cast_params(torch.bfloat16): parameters {bytes32} -> {bytes16} bytes; one "
+          f"UNet forward against float32 parameters, max abs / max |float32|: {e_cast:.4g} "
+          f"(tol {CAST_UNET_TOL}); output {y16.dtype}", flush=True)
+    check(y16.dtype == torch.float32 and e_cast <= CAST_UNET_TOL,
+          "[11] cast_params: the bf16-parameter forward moved too far")
+    del cast
+
+    # --- split_decoder_skips: one forward against the concatenating one
+    state = load_adm_checkpoint(str(ckpt), config.unet)
+    rows = []
+    for dtype, tol in ((torch.float32, SPLIT_F32_TOL), (torch.bfloat16, SPLIT_BF16_TOL)):
+        outs = {}
+        for split in (False, True):
+            unet = dataclasses.replace(config.unet, dtype=dtype, split_decoder_skips=split)
+            model = InpaintingUNet(unet)
+            model.load_state_dict(state, strict=True)
+            model = model.to("cuda").eval()
+            with torch.inference_mode():
+                fn = lambda: model(x, t, masked, mask)  # noqa: E731
+                ms = cuda_ms(torch, fn)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                outs[split] = fn()
+                peak = torch.cuda.max_memory_allocated() - base
+            rows.append(f"{str(dtype)[6:]} {'split' if split else 'concat'} {ms:.4f} ms, "
+                        f"peak {peak / 2**20:.1f} MiB above the model")
+            del model
+        err = ((outs[True] - outs[False]).abs().max() / outs[False].abs().max()).item()
+        print(f"[11] split_decoder_skips, {dtype}: one forward against the concatenating "
+              f"one, max abs / max |concat|: {err:.4g} (tol {tol})", flush=True)
+        check(err <= tol, f"[11] split_decoder_skips {dtype}: the forwards disagree")
+    print(f"[11] forward B={BATCH}, CUDA events: {'; '.join(rows)}; {smi}", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    launched = LAUNCHES["attention.bf16"] - launched
+    print(f"[11] phase wall {time.perf_counter() - t_phase:.1f} s; bf16 attention launches "
+          f"{launched}", flush=True)
+    return launched
+
+
 def main():
     import torch
 
@@ -2255,6 +2631,7 @@ def main():
     out = pipe.inpaint(gt, mask, 0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    refs = {"ddim-100": (out.cpu(), seconds)}
     launches = dict(sorted(LAUNCHES.items()))
     n_steps = len(_ddim_tables(pipe.sched, config.sampler)["t"])
     print(f"[3] DDIM-100 inpaint B={BATCH} at {config.unet.image_size}^2: "
@@ -2274,6 +2651,7 @@ def main():
     out_sde = pipe.inpaint(gt, mask, 0, sampler=sde)
     torch.cuda.synchronize()
     sde_s = time.perf_counter() - t0
+    refs["dpm-25-sde"] = (out_sde.cpu(), sde_s)
     sde_launches = dict(sorted(LAUNCHES.items()))
     print(f"[3] dpm-25-sde inpaint B={BATCH} at {config.unet.image_size}^2: "
           f"{sde_s:.4f} s per call, {sde_s / BATCH:.4f} s per sample, "
@@ -2444,13 +2822,14 @@ def main():
     torch.cuda.empty_cache()
 
     # 6. the serving path at full width, on phase 5's checkpoint
-    phase_serving(torch, np, ckpt, pipe, n_attn, smi)
+    serving6 = phase_serving(torch, np, ckpt, pipe, n_attn, smi)
 
     # 7. feature caching at full width, on phase 3's pipeline and inputs
     with torch.inference_mode():
         cached_forwards(torch, pipe.model, n_attn, (x, t, masked, mask))
     cached_presets(torch, pipe, n_attn, gt, mask, keep, out, smi)
-    bench_line(torch, np, pipe, n_attn, smi)
+    refs.update({f"bench {name}": first
+                 for name, first in bench_line(torch, np, pipe, n_attn, smi).items()})
 
     # 8. the evaluate path at full width, on phase 5's checkpoint and .npz,
     # under torch's default TF32 switches: the CLIs as a user runs them
@@ -2488,20 +2867,26 @@ def main():
     # default TF32 switches, as a user's training process has them
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
     training_launches = phase_training(torch, np, ckpt, n_attn, smi)
+
+    # 11. the warm program cache, both TF32 switches off again
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    program_launches = phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi)
     ckpt_dir.cleanup()
 
-    # 11. the record
+    # 12. the record
     # launches: attention_bf16 in phase 3's DDIM-100 call, phase 9's
     # kernel-path calls (the new methods, guidance, the trajectory, the
-    # CLIs) and phase 10's (cli.train's train and validation forwards, the
-    # remat policies' steps, the CLIs on its checkpoints), attention_f32 in
+    # CLIs), phase 10's (cli.train's train and validation forwards, the
+    # remat policies' steps, the CLIs on its checkpoints) and phase 11's
+    # (program replays and their recording runs, the servers, the CLI
+    # runs, the forwards), attention_f32 in
     # phase 8's `cli.evaluate --dtype f32` run (its user path; phase 4's
     # float32 forward launched it too), quantize in phase 5's absmax CLI run
     kernels = [dict(name="attention_bf16", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
                     launches=launches["attention.bf16"] + sampling_launches
-                    + training_launches,
+                    + training_launches + program_launches,
                     **attn_rows[torch.bfloat16]),
                dict(name="attention_f32", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",

@@ -29,10 +29,14 @@ Every preset runs. `--save_trajectory K` writes each batch's first 4
 samples as strips (masked input, every K-th sampler state, the output) to
 `output_dir/trajectory/{index:05d}_strip.png`, as the JAX CLI does.
 
-Not ported yet, and refused with NotImplementedError before the model is
-built: `--program_cache` (with a CUDA-graph warm cache). Directories written
-by the JAX package's orbax manager are not read. The JAX CLI's persistent
-compilation cache has no counterpart: PyTorch runs eagerly.
+`--program_cache DIR` captures the sampler call at `--batch_size` as a CUDA
+graph (`InpaintingPipeline.compile_batch`) before the first batch, and every
+batch replays it (the last one is padded to that size, as without the flag),
+with the same numbers; DIR keeps its manifest (`serving/aot.py`), and a
+later run captures it again. Directories written by the JAX package's orbax
+manager are not read. The JAX CLI's persistent compilation cache has no
+counterpart: PyTorch compiles nothing but the kernels' nvcc libraries, which
+`ops/build.py` caches.
 """
 from __future__ import annotations
 
@@ -131,8 +135,10 @@ def parse_args(argv=None):
                    help="compute dtype of the UNet's activations (parameters "
                         "stay float32)")
     p.add_argument("--program_cache", default=None,
-                   help="directory of saved sampling programs (not ported "
-                        "yet: refused)")
+                   help="directory of the warm program's manifest "
+                        "(serving/aot.py): the sampler call at --batch_size is "
+                        "captured as a CUDA graph and every batch replays it; "
+                        "a later run captures it again")
     p.add_argument("--quick_test", action="store_true",
                    help="8 samples, 2 batches, 10 DDIM steps "
                         "(test_inpainting_better.py:865-889)")
@@ -171,20 +177,6 @@ def batch_noise(seed: int, bi: int, device):
 
     return GeneratorNoise(int(np.random.SeedSequence([seed, bi]).generate_state(1, np.uint64)[0]),
                           device)
-
-
-def _refuse_unported(args):
-    """The JAX CLI's branches that later parts of the port bring, refused
-    before anything is built; and a checkpoint directory without a
-    checkpoint."""
-    if args.checkpoint and os.path.isdir(args.checkpoint):
-        from .train import require_checkpoint
-
-        require_checkpoint(args.checkpoint)
-    if args.program_cache:
-        raise NotImplementedError(
-            "--program_cache is not ported yet: it comes with the warm cache "
-            "(CUDA-graph captures per preset and batch size)")
 
 
 def _checkpoint_which(ckpt: str) -> str:
@@ -342,7 +334,11 @@ def main(argv=None):
         args.num_samples = 8
         args.batch_size = 4
         args.ddim_timesteps = args.ddim_timesteps or 10
-    _refuse_unported(args)
+    if args.checkpoint and os.path.isdir(args.checkpoint):
+        from .train import require_checkpoint
+
+        # a directory without a checkpoint raises before anything is built
+        require_checkpoint(args.checkpoint)
     if args.fid_stats and not args.fid_weights:
         raise ValueError(
             "--fid_stats requires --fid_weights (the same InceptionV3 "
@@ -350,6 +346,12 @@ def main(argv=None):
     sampler = build_sampler(args)
     pipe = build_pipeline(args, sampler)
     device = pipe.device
+    if args.program_cache:
+        from ..serving import aot
+
+        loaded = aot.load_programs(pipe, args.program_cache, [args.batch_size])
+        written = aot.save_programs(pipe, args.program_cache, [args.batch_size])
+        print(f"program cache: {loaded} loaded, {written} compiled+saved")
 
     loader = create_inference_dataloader(
         args.data_dir, args.mask_dir, batch_size=args.batch_size,

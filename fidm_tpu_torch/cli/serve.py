@@ -1,8 +1,12 @@
 """Serving CLI: batched inpainting over HTTP (PyTorch port).
 
 Counterpart of `fidm_tpu/cli/serve.py`, with the same flags and defaults
-(the `dpm-25-sde` preset) plus `--device`, and without `--program_cache`:
-torch has no serialized executable, so every start runs the warm-up.
+(the `dpm-25-sde` preset) plus `--device`. `--program_cache DIR` makes the
+warm-up capture a CUDA graph of one whole sampler call for every (preset,
+batch size) and replay them for every batch; DIR keeps one manifest per
+program (`serving/aot.py`). A graph does not outlive its process, so a
+restart captures every listed program again: DIR says which, and checks them
+against this process's software, card and model.
 
     python -m fidm_tpu_torch.cli.serve --checkpoint model.pt --port 8571
 
@@ -63,6 +67,12 @@ def parse_args(argv=None):
                         "the FIRST is the default for unmarked requests "
                         "and overrides --preset. Warm-up runs every "
                         "(preset, batch size) once")
+    p.add_argument("--program_cache", default=None,
+                   help="directory of the warm programs' manifests: the "
+                        "warm-up captures a CUDA graph of every (preset, batch "
+                        "size) and every batch replays one; a restart "
+                        "captures the listed programs again (a graph does not "
+                        "outlive its process); written on first warm-up")
     p.add_argument("--refine_tier", type=float, default=None, metavar="S",
                    help="add a 'refine' preset: the default preset with "
                         "strength=S, SDEdit harmonization of a "
@@ -181,6 +191,7 @@ def main(argv=None):
         pipe, args.host, args.port, args.batch_size, args.max_wait_ms,
         batch_sizes=tuple(args.batch_sizes) if args.batch_sizes else None,
         base_seed=args.base_seed, warmup=True,
+        program_cache_dir=args.program_cache,
         compress_responses=args.compress_responses,
         adaptive_wait=not args.no_adaptive_wait,
         presets=presets, max_queue=args.max_queue,

@@ -8,9 +8,18 @@ the ADM torch ones (`in_layers.2`, `emb_layers.1`, `out_layers.3`,
 Dtype policy, as in the JAX package: parameters are float32, activations run
 in the model's compute dtype (bf16 on the card), and each layer casts its
 parameters to that dtype when it runs. GroupNorm statistics and the
-attention softmax are float32.
+attention softmax are float32. Parameters cast to bf16 (`cast_params`) keep
+that arithmetic: each layer upcasts what it computes in float32.
 
-`conv` and `linear` apply every convolution and dense layer of the model;
+A decoder ResBlock called with `skip` (`UNetConfig.split_decoder_skips`)
+computes the function of its call on `cat([x, skip])` without building the
+concatenation, as the JAX package's `ResBlock(skip=...)`: GroupNorm + SiLU
+over both halves from per-channel float32 sums (`_split_groupnorm_silu`), the
+input and skip convolutions as two half-kernel convolutions summed. The
+parameters are the same modules either way.
+
+`conv` and `linear` apply every convolution and dense layer of the model
+(`conv_halves` a convolution of a channel concatenation it never builds);
 inside `capture_inputs(fn)` each of them first hands its module and input to
 `fn` (calibration records input statistics there), and inside
 `weight_overrides(mapping)` a module found in `mapping` applies that weight
@@ -112,6 +121,21 @@ def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, w.to(x.dtype), m.bias.to(x.dtype))
 
 
+def conv_halves(m: nn.Conv2d, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`m` applied to the channel concatenation [a | b], in the dtype of `a`,
+    without building it: two convolutions with the halves of its kernel,
+    summed, then its bias (the JAX package's `_conv_half`). Inside
+    `capture_inputs` the hook is handed the concatenation, the input the
+    concatenating path gives `m`."""
+    if _capture is not None:
+        _capture(m, torch.cat([a, b], dim=1), 1)
+    ca = a.shape[1]
+    w = _weights.get(m, m.weight).to(a.dtype)
+    h = (F.conv2d(a, w[:, :ca], None, m.stride, m.padding)
+         + F.conv2d(b, w[:, ca:], None, m.stride, m.padding))
+    return h + m.bias.to(a.dtype)[:, None, None]
+
+
 def zero_module(m: nn.Module) -> nn.Module:
     for p in m.parameters():
         nn.init.zeros_(p)
@@ -125,8 +149,43 @@ class GroupNorm32(nn.GroupNorm):
         super().__init__(32, channels, eps=1e-5)
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+def _split_groupnorm_silu(a: torch.Tensor, b: torch.Tensor, norm: GroupNorm32):
+    """GroupNorm(32) + SiLU over the virtual concatenation [a | b] on the
+    channel axis, without building it (the JAX package's
+    `_split_groupnorm_silu`): group statistics from per-channel float32 sums
+    of each half, one-pass E[x^2] - E[x]^2 as there, a group may straddle the
+    boundary; then each half is normalised in its own dtype. Returns the two
+    halves."""
+    B, ca = a.shape[:2]
+    c = ca + b.shape[1]
+    groups = norm.num_groups
+    n = a.shape[2] * a.shape[3] * (c // groups)
+
+    def channel_sums(x):
+        x32 = x.float()
+        return x32.sum(dim=(2, 3)), x32.square().sum(dim=(2, 3))
+
+    sa, qa = channel_sums(a)
+    sb, qb = channel_sums(b)
+    mean = torch.cat([sa, sb], 1).reshape(B, groups, -1).sum(-1) / n
+    var = torch.clamp(torch.cat([qa, qb], 1).reshape(B, groups, -1).sum(-1) / n
+                      - mean.square(), min=0.0)
+    inv = torch.rsqrt(var + norm.eps)
+    mean_c = mean.repeat_interleave(c // groups, 1)[:, :, None, None]
+    inv_c = inv.repeat_interleave(c // groups, 1)[:, :, None, None]
+    scale = norm.weight.float()[:, None, None]
+    bias = norm.bias.float()[:, None, None]
+
+    def half(x, lo, hi):
+        m = (inv_c[:, lo:hi] * scale[lo:hi]).to(x.dtype)
+        o = (bias[lo:hi] - mean_c[:, lo:hi] * inv_c[:, lo:hi] * scale[lo:hi]).to(x.dtype)
+        return F.silu(x * m + o)
+
+    return half(a, 0, ca), half(b, ca, c)
 
 
 def _upsample(x):
@@ -183,14 +242,32 @@ class ResBlock(nn.Module):
         self.skip_connection = (nn.Identity() if out_ch == channels
                                 else nn.Conv2d(channels, out_ch, 1))
 
-    def forward(self, x, emb, deterministic: bool = True):
+    def forward(self, x, emb, deterministic: bool = True, skip=None):
+        """With `skip`, the block's function of cat([x, skip]) on the channel
+        axis, the concatenation never built where the residual is a 1x1
+        convolution (an identity residual needs it anyway); plain blocks
+        only, as in the JAX package."""
+        if skip is not None:
+            if self.up or self.down:
+                raise ValueError("split-skip path supports plain blocks only "
+                                 "(no up/down)")
+            if isinstance(self.skip_connection, nn.Identity):
+                x = torch.cat([x, skip], dim=1)
+            else:
+                a, b = _split_groupnorm_silu(x, skip, self.in_layers[0])
+                h = self._out(conv_halves(self.in_layers[2], a, b), emb, deterministic)
+                return conv_halves(self.skip_connection, x, skip) + h
         h = F.silu(self.in_layers[0](x))
         if self.up:
             h, x = _upsample(h), _upsample(x)
         elif self.down:
             h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
-        h = conv(self.in_layers[2], h)
+        h = self._out(conv(self.in_layers[2], h), emb, deterministic)
+        skip = self.skip_connection
+        return (x if isinstance(skip, nn.Identity) else conv(skip, x)) + h
 
+    def _out(self, h, emb, deterministic):
+        """The timestep embedding, the output norm and the output conv."""
         emb_out = linear(self.emb_layers[1], F.silu(emb)).to(h.dtype)[..., None, None]
         out_norm = self.out_layers[0]
         if self.use_scale_shift_norm:
@@ -199,10 +276,7 @@ class ResBlock(nn.Module):
         else:
             h = out_norm(h + emb_out)
         h = F.dropout(F.silu(h), self.out_layers[2].p, training=not deterministic)
-        h = conv(self.out_layers[3], h)
-
-        skip = self.skip_connection
-        return (x if isinstance(skip, nn.Identity) else conv(skip, x)) + h
+        return conv(self.out_layers[3], h)
 
 
 class AttentionBlock(nn.Module):

@@ -14,6 +14,11 @@ SiLU, embedding and attention glue around them. The JAX policy also saves
 the attention block's output projection, whose backward needs only its
 input, so there too the attention itself runs again: both policies launch
 the attention kernel once more per block in the backward.
+
+`UNetConfig.split_decoder_skips` hands each decoder ResBlock its skip feature
+beside h instead of their concatenation (`layers.ResBlock.forward`); the
+modules, and so the state dict, are the same either way, and it composes with
+the feature cache and with remat.
 """
 from __future__ import annotations
 
@@ -65,6 +70,11 @@ class UNetConfig:
     # remat_policy "full" or "convs" (see the module docstring)
     remat: bool = False
     remat_policy: str = "full"
+    # decoder skip connections without building the channel concatenation:
+    # each output ResBlock with a 1x1 residual conv takes (h, emb, skip) and
+    # computes the same function (up to the order of float sums) on the same
+    # parameters (see `ResBlock.forward`); opt-in, as in the JAX package
+    split_decoder_skips: bool = False
 
 
 def ffhq256_config(**overrides) -> UNetConfig:
@@ -141,11 +151,14 @@ class UNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
                                  zero_module(nn.Conv2d(ch, cfg.out_channels, 3, padding=1)))
 
-    def _run(self, block: nn.ModuleList, h, emb, deterministic: bool = True):
+    def _run(self, block: nn.ModuleList, h, emb, deterministic: bool = True, skip=None):
+        """The block's layers in order; `skip`, a decoder skip feature, goes
+        to its first layer, a ResBlock, which takes the concatenation."""
         cfg = self.config
         for layer in block:
             if isinstance(layer, ResBlock):
-                args = (h, emb, deterministic)
+                args = (h, emb, deterministic) + (() if skip is None else (skip,))
+                skip = None
             elif isinstance(layer, AttentionBlock):
                 args = (h,)
             else:
@@ -227,8 +240,11 @@ class UNet(nn.Module):
         for i in range(start, len(self.output_blocks)):
             if return_cache and i == branch:
                 new_cache = h
-            h = self._run(self.output_blocks[i], torch.cat([h, hs.pop()], dim=1), emb,
-                          deterministic)
+            if cfg.split_decoder_skips:
+                h = self._run(self.output_blocks[i], h, emb, deterministic, skip=hs.pop())
+            else:
+                h = self._run(self.output_blocks[i], torch.cat([h, hs.pop()], dim=1), emb,
+                              deterministic)
         assert not hs
 
         h = F.silu(self.out[0](h))

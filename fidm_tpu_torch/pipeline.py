@@ -7,11 +7,18 @@ preset of `SAMPLER_PRESETS` runs. The server (`serving/`, `cli/serve.py`)
 serves `dpm-25-sde` by default. Presets with feature caching (`ddim-100-deep`
 and the other `encoder_cache_period` > 1 presets) get the model's (full,
 cached) call pair from `inpaint`.
+
+Warm programs: `compile_batch` builds a `SamplingProgram` for one (batch,
+SamplerConfig, seed layout), a CUDA graph of one whole `inpaint_sample` call on
+a CUDA pipeline (`sampling/program.py`); `install_program` registers it, and
+`inpaint` without `cond_fn` prefers an installed program whose (shape, config,
+seed layout) matches exactly, as the JAX pipeline prefers its AOT executables.
+Everything else runs eagerly. `serving/aot.py` keeps a directory of them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -20,6 +27,8 @@ from .diffusion import DiffusionSchedule, ModelMeanType
 from .models import InpaintingUNet, UNetConfig, ffhq256_config
 from .models.weights import load_adm_checkpoint
 from .sampling import GeneratorNoise, SamplerConfig, inpaint_sample
+from .sampling.program import SamplingProgram
+from .sampling.sampler import _method_tables
 
 __all__ = [
     "PipelineConfig",
@@ -122,6 +131,8 @@ class InpaintingPipeline:
         self.sched = sched
         self.config = config
         self.device = next(model.parameters()).device
+        # installed programs by ((B, S, S, 3), SamplerConfig, per-row seeds)
+        self._programs: Dict[tuple, SamplingProgram] = {}
 
     @classmethod
     def create(cls, config: Optional[PipelineConfig] = None,
@@ -130,6 +141,17 @@ class InpaintingPipeline:
         model, sched = create_model_and_schedule(
             config, checkpoint=checkpoint, seed=seed, device=device)
         return cls(model, sched, config)
+
+    def cast_params(self, dtype=torch.bfloat16):
+        """Cast the model's floating parameters and buffers to `dtype` for
+        inference (half the weight bytes in bf16). GroupNorm statistics, the
+        softmax and the final conv keep their float32 arithmetic: each layer
+        upcasts what it computes in float32 (`models/layers.py`). Drops every
+        installed program, whose graph holds the old parameters' addresses
+        and dtypes. Returns self."""
+        self.model.to(dtype)
+        self._programs.clear()
+        return self
 
     def _apply(self, x, t, masked_image, mask, **cache_kw):
         if self.config.rescale_timesteps:
@@ -194,6 +216,11 @@ class InpaintingPipeline:
         a classifier; the call then runs under `torch.no_grad()`, where
         otherwise it runs under `torch.inference_mode()`.
 
+        Without `cond_fn`, a program installed for this (shape, sampler, seed
+        layout) runs the call (see `compile_batch`); a `noise` that is a
+        `GeneratorNoise` counts as its seed. Its output is the eager call's bit
+        for bit.
+
         `strength` < 1 overrides the preset's and switches to refinement
         (SDEdit): only the last round(strength * K) steps run, starting from
         `gt` noised to that level, so gt's hole must carry the content to
@@ -215,8 +242,63 @@ class InpaintingPipeline:
                 f"mask {tuple(mask.shape)} vs gt {tuple(gt.shape)}")
         if noise is None:
             noise = GeneratorNoise(seed, self.device)
+        if cond_fn is None and type(noise) is GeneratorNoise:
+            program = self._programs.get((tuple(gt.shape), cfg, noise.seeds is not None))
+            if program is not None:
+                return program(gt, mask, noise.seed if noise.seeds is None else noise.seeds)
         # a cond_fn may take a gradient, which inference tensors cannot give
         with torch.no_grad() if cond_fn is not None else torch.inference_mode():
             return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
                                   noise=noise, cache_apply=self._cache_apply(cfg),
                                   cond_fn=cond_fn)
+
+    def example_inputs(self, batch: int, batched_key: bool = False):
+        """(gt, mask, seed) for a batch-`batch` program: float32 zeros
+        [batch, S, S, 3] and [batch, S, S, 1] on the pipeline's device, and
+        seed 0, or `batched_key` per-row seeds 0..batch-1 (the serving
+        layer's layout)."""
+        S = self.config.unet.image_size
+        gt = torch.zeros((batch, S, S, 3), device=self.device)
+        mask = torch.zeros((batch, S, S, 1), device=self.device)
+        return gt, mask, list(range(batch)) if batched_key else 0
+
+    def compile_batch(self, batch: int, sampler: Optional[SamplerConfig] = None,
+                      batched_key: bool = False) -> SamplingProgram:
+        """The sampling program of one batch size (`sampling/program.py`): on
+        a CUDA pipeline a captured CUDA graph of one `inpaint_sample` call,
+        after one eager run on a side stream; a failed capture raises. On a
+        CPU pipeline the same program without the graph. Install it with
+        `install_program`, or persist it with `serving.aot.save_programs`."""
+        cfg = sampler or self.config.sampler
+        self._validate_cache_cfg(cfg)
+        gt, _, seed = self.example_inputs(batch, batched_key)
+        cache_apply = self._cache_apply(cfg)
+
+        def run(gt, mask, noise, device_tables):
+            return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask, noise=noise,
+                                  cache_apply=cache_apply, device_tables=device_tables)
+
+        return SamplingProgram(run, _method_tables(self.sched, cfg), gt.shape, self.device,
+                               batched_key, seed)
+
+    def install_program(self, batch: int, cfg: SamplerConfig, program: SamplingProgram,
+                        batched_key: bool = False):
+        """Register a program for exact-shape dispatch: `inpaint` prefers it.
+        `batched_key` must be the layout it was built for (per-row seeds, or
+        one seed)."""
+        S = self.config.unet.image_size
+        self._programs[((batch, S, S, 3), cfg, batched_key)] = program
+
+    def installed_program(self, batch: int, cfg: SamplerConfig,
+                          batched_key: bool = False) -> Optional[SamplingProgram]:
+        """The program `inpaint` would run for this batch, config and seed
+        layout, or None."""
+        S = self.config.unet.image_size
+        return self._programs.get(((batch, S, S, 3), cfg, batched_key))
+
+    def uninstall_program(self, batch: int, cfg: SamplerConfig,
+                          batched_key: bool = False) -> bool:
+        """Drop an installed program (e.g. one that failed to run); later
+        calls run eagerly. Returns whether one was installed."""
+        S = self.config.unet.image_size
+        return self._programs.pop(((batch, S, S, 3), cfg, batched_key), None) is not None

@@ -748,20 +748,25 @@ class GeneratorNoise:
         g.manual_seed(int(state.generate_state(1, np.uint64)[0]))
         return g
 
-    def _draw(self, stream: int, index: int, shape) -> torch.Tensor:
-        shape = tuple(shape)
+    def fill(self, stream: int, index: int, out: torch.Tensor) -> torch.Tensor:
+        """Write the (stream, index) draw into `out`, a float32 tensor on the
+        source's device of the draw's shape, and return it: the same values as
+        the draw itself (a sampling program fills its static buffers so)."""
         if self.seeds is None:
-            return torch.randn(shape, generator=self._generator(self.seed, stream, index),
-                               device=self.device, dtype=torch.float32)
-        if shape[0] != len(self.seeds):
+            return torch.randn(out.shape, generator=self._generator(self.seed, stream, index),
+                               out=out)
+        if out.shape[0] != len(self.seeds):
             raise ValueError(
-                f"per-row seed batch {len(self.seeds)} != input batch {shape[0]} "
+                f"per-row seed batch {len(self.seeds)} != input batch {out.shape[0]} "
                 "(pass one seed per row, or a single seed)")
-        out = torch.empty(shape, device=self.device, dtype=torch.float32)
         for row, seed in zip(out, self.seeds):
-            torch.randn(shape[1:], generator=self._generator(seed, stream, index),
+            torch.randn(out.shape[1:], generator=self._generator(seed, stream, index),
                         out=row)
         return out
+
+    def _draw(self, stream: int, index: int, shape) -> torch.Tensor:
+        return self.fill(stream, index, torch.empty(tuple(shape), device=self.device,
+                                                    dtype=torch.float32))
 
     def init(self, shape) -> torch.Tensor:
         return self._draw(0, 0, shape)
@@ -967,12 +972,14 @@ def _model_caller(cfg: SamplerConfig, K: int, apply_fn: Callable,
     return call
 
 
-def _run(cfg, tables, x, aux, update, call, before=None, after=None):
+def _run(cfg, tables, x, aux, update, call, before=None, after=None, xs=None):
     """The loop: per step, `before` (pre-injection), the model call (skipped
     on repaint's renoise rows), the method's update, `after`
     (post-injection), the trajectory frame. Every branch is a host decision;
-    the loop never reads a device value back. Returns (x, frames or None)."""
-    xs = _to_device_xs(tables, x.device)
+    the loop never reads a device value back. `xs` are the tables on the
+    device, uploaded here when None. Returns (x, frames or None)."""
+    if xs is None:
+        xs = _to_device_xs(tables, x.device)
     K = len(tables["t"])
     runs_model = tables.get("is_denoise", np.ones(K, np.int32))
     frames, record = _traj_recorder(cfg, K, x)
@@ -1005,6 +1012,7 @@ def inpaint_sample(
     x_init: Optional[torch.Tensor] = None,
     cache_apply: Optional[Tuple[Callable, Callable]] = None,
     cond_fn: Optional[Callable] = None,
+    device_tables: Optional[Dict[str, torch.Tensor]] = None,
 ):
     """Run the inpainting reverse process.
 
@@ -1027,6 +1035,10 @@ def inpaint_sample(
         It is called with autograd enabled on a copy of x that requires
         grad; run the sampler under `torch.no_grad()`, not
         `torch.inference_mode()`, when it takes a gradient.
+      device_tables: the method's host tables already on gt's device,
+        `_to_device_xs(_method_tables(sched, cfg), device)`, for a caller
+        that uploads them once (a sampling program, whose graph must not
+        copy from host memory); uploaded per call when None.
 
     Returns:
       Inpainted images [B,H,W,3]; with cfg.final_blend the known pixels are
@@ -1086,7 +1098,7 @@ def inpaint_sample(
             return _maybe_post_inject(x, s, gt, keep,
                                       noise.inject(int(tables["inject_t"][i]), gt.shape))
 
-    x, frames = _run(cfg, tables, x, aux0, update, call, before, after)
+    x, frames = _run(cfg, tables, x, aux0, update, call, before, after, device_tables)
     if cfg.final_blend:
         x = x * mask + gt * keep
     return _result(x, frames, cfg)

@@ -1,5 +1,6 @@
-"""The batched inpainting HTTP server (PyTorch port of `fidm_tpu.serving`,
-without its AOT program cache)."""
+"""The batched inpainting HTTP server and its warm program cache (PyTorch
+port of `fidm_tpu.serving`; `aot` keeps manifests of CUDA-graph programs,
+not executables: see its docstring)."""
 from .server import (
     DeadlineExceededError,
     InpaintingServer,

@@ -42,6 +42,12 @@ on the device. Response encoding runs on the HTTP handler threads.
 it into stats["phases_ms"] (assemble / upload / dispatch / execute /
 download); fencing serializes, so it forces max_inflight=1.
 
+With `program_cache_dir` the warm-up installs a program (a CUDA graph of one
+whole sampler call, `InpaintingPipeline.compile_batch`) for every (preset,
+batch size) and keeps their manifests there (`serving/aot.py`); every batch
+then replays one. The programs are captured in thread-local capture mode, so
+the dispatcher thread may wait on its queue meanwhile.
+
 The sampler loop is Python on the host, and the dispatcher, the HTTP handler
 threads and any client threads in the same process share the interpreter
 lock. The server never catches a launch failure to retry elsewhere: the
@@ -54,6 +60,7 @@ import copy
 import io
 import itertools
 import json
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -96,6 +103,7 @@ class InpaintingServer:
                  max_wait_ms: float = 20.0,
                  batch_sizes: Optional[tuple] = None,
                  base_seed: int = 0,
+                 program_cache_dir: Optional[str] = None,
                  compress_responses: bool = False,
                  adaptive_wait: bool = True,
                  presets: Optional[Dict] = None,
@@ -104,6 +112,8 @@ class InpaintingServer:
                  max_inflight: int = 2,
                  instrument: bool = False):
         self.pipeline = pipeline
+        # warm programs (serving/aot.py): built and installed by warmup()
+        self.program_cache_dir = program_cache_dir
         # sampler quality tiers served side by side: name -> SamplerConfig.
         # The FIRST entry is the default for requests that name none; a
         # device batch only ever carries one preset.
@@ -316,18 +326,56 @@ class InpaintingServer:
     def warmup(self):
         """Run every (preset, batch size) once, blocking, so that no client
         request pays a first run: the kernels' nvcc build, cuDNN's plans
-        and the allocator's first blocks."""
+        and the allocator's first blocks.
+
+        With `program_cache_dir`, every (preset, batch size) first gets an
+        installed program in the serving seed layout (per-row seeds):
+        `aot.load_programs` builds those the directory lists and
+        `aot.save_programs` the rest, writing their manifests; the runs
+        below then replay them. A program that raises when it runs is
+        uninstalled, its manifest removed, and built once more; if that
+        fails too, warmup raises."""
+        if self.program_cache_dir is not None:
+            from . import aot
+
+            for cfg in self.presets.values():
+                n = aot.load_programs(self.pipeline, self.program_cache_dir,
+                                      self.batch_sizes, sampler=cfg, batched_key=True)
+                if n:
+                    print(f"program cache: loaded {n}/{len(self.batch_sizes)} programs")
+                aot.save_programs(self.pipeline, self.program_cache_dir,
+                                  self.batch_sizes, sampler=cfg, batched_key=True)
         S = self.pipeline.config.unet.image_size
         img = np.zeros((S, S, 3), np.float32)
         msk = np.ones((S, S, 1), np.float32)
+
+        def run(cfg, s):
+            out = self.pipeline.inpaint(np.repeat(img[None], s, 0), np.repeat(msk[None], s, 0),
+                                        [0] * s, sampler=cfg)
+            # a one-element readback waits for the run; the batch itself
+            # never crosses to the host
+            out[(0,) * out.ndim].item()
+
         for cfg in self.presets.values():
             for s in self.batch_sizes:
-                gt = np.repeat(img[None], s, 0)
-                mask = np.repeat(msk[None], s, 0)
-                out = self.pipeline.inpaint(gt, mask, [0] * s, sampler=cfg)
-                # a one-element readback waits for the run; the batch
-                # itself never crosses to the host
-                out[(0,) * out.ndim].item()
+                try:
+                    run(cfg, s)
+                except Exception as e:
+                    if (self.program_cache_dir is None
+                            or not self.pipeline.uninstall_program(s, cfg, batched_key=True)):
+                        raise
+                    from . import aot
+
+                    try:
+                        os.remove(aot.program_path(self.program_cache_dir, self.pipeline, s,
+                                                   cfg, batched_key=True))
+                    except OSError:
+                        pass
+                    print(f"program cache: the batch-{s} program failed to run ({e}); "
+                          "building it again")
+                    aot.save_programs(self.pipeline, self.program_cache_dir, (s,), sampler=cfg,
+                                      overwrite=True, batched_key=True)
+                    run(cfg, s)
         return self
 
     def _drain_matching(self, batch, preset):
@@ -632,17 +680,21 @@ def _make_handler(server: InpaintingServer):
 def serve(pipeline, host: str = "127.0.0.1", port: int = 8571,
           batch_size: int = 8, max_wait_ms: float = 20.0,
           batch_sizes: Optional[tuple] = None, base_seed: int = 0,
-          warmup: bool = False, compress_responses: bool = False,
+          warmup: bool = False, program_cache_dir: Optional[str] = None,
+          compress_responses: bool = False,
           adaptive_wait: bool = True, presets: Optional[Dict] = None,
           max_queue: Optional[int] = None,
           default_deadline_s: Optional[float] = None,
           max_inflight: int = 2, instrument: bool = False):
     """Start the HTTP server; returns (httpd, dispatcher). Call
     httpd.serve_forever() (or run it in a thread), and on the way out
-    httpd.shutdown(), httpd.server_close() and dispatcher.close()."""
+    httpd.shutdown(), httpd.server_close() and dispatcher.close().
+    `program_cache_dir` is the warm-up's program cache (see
+    `InpaintingServer.warmup`)."""
     dispatcher = InpaintingServer(pipeline, batch_size, max_wait_ms,
                                   batch_sizes=batch_sizes,
                                   base_seed=base_seed,
+                                  program_cache_dir=program_cache_dir,
                                   compress_responses=compress_responses,
                                   adaptive_wait=adaptive_wait,
                                   presets=presets, max_queue=max_queue,

@@ -20,7 +20,7 @@ from fidm_tpu_torch.ops import attention as port_attention
 from fidm_tpu_torch.ops import quantize as port_quantize
 from fidm_tpu_torch.quant import quantize_tensor
 from fidm_tpu_torch.sampling import GeneratorNoise, SamplerConfig
-from fidm_tpu_torch.sampling.sampler import _dpm_tables
+from fidm_tpu_torch.sampling.sampler import _dpm_tables, _method_tables
 from fidm_tpu_torch.serving import InpaintingServer
 
 pytestmark = pytest.mark.cuda
@@ -355,6 +355,75 @@ def test_small_server_on_the_card(cuda):
         assert np.isfinite(out).all() and np.array_equal(out[keep], im[keep])
     ref = pipe.inpaint(images[1:2], mask[None], [11]).cpu().numpy()[0]
     assert np.array_equal(alone, ref)
+
+
+def _small_pipeline(sampler, seed=0):
+    """A small CUDA pipeline with its zero-initialised output convs re-drawn,
+    so that the output depends on every block."""
+    cfg = PipelineConfig(
+        unet=UNetConfig(image_size=32, model_channels=64, channel_mult=(1, 2),
+                        attention_resolutions=(2,), num_head_channels=64), sampler=sampler)
+    pipe = InpaintingPipeline.create(cfg, seed=seed, device="cuda")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed + 1)
+        for m in pipe.model.modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d)) and not m.weight.any():
+                m.reset_parameters()
+    rng = np.random.default_rng(2)
+    gt = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)).cuda()
+    mask = torch.zeros((2, 32, 32, 1), device="cuda")
+    mask[:, 8:24, 8:24] = 1.0
+    return pipe, gt, mask
+
+
+@pytest.mark.parametrize("seed", [0, [3, 99]], ids=["one_seed", "per_row_seeds"])
+@pytest.mark.parametrize("sampler", [
+    SamplerConfig(method="ddim", num_steps=6, eta=0.9, injection=True),
+    SamplerConfig(method="dpm++2m-sde", num_steps=6, injection=True)], ids=["ddim", "dpm_sde"])
+def test_program_replays_the_eager_call(cuda, sampler, seed):
+    """A small program on the card: `compile_batch` captures a
+    torch.cuda.CUDAGraph; each replay, through `inpaint`, is bit-equal to
+    the eager call and adds the capture's recorded launches to LAUNCHES (the
+    capture itself adds none); a second replay returns new tensors."""
+    pipe, gt, mask = _small_pipeline(sampler)
+    n_attn = sum(isinstance(m, AttentionBlock) for m in pipe.model.modules())
+    per_call = n_attn * len(_method_tables(pipe.sched, sampler)["t"])
+    batched = not isinstance(seed, int)
+    ref = pipe.inpaint(gt, mask, seed)
+    before = LAUNCHES["attention"]
+    program = pipe.compile_batch(2, batched_key=batched)
+    assert LAUNCHES["attention"] - before == per_call  # the recording run alone
+    assert isinstance(program.graph, torch.cuda.CUDAGraph)
+    assert program.launches["attention"] == per_call
+    pipe.install_program(2, sampler, program, batched_key=batched)
+    before = LAUNCHES["attention"]
+    out = pipe.inpaint(gt, mask, seed)
+    assert LAUNCHES["attention"] - before == per_call
+    again = pipe.inpaint(gt, mask, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(again, ref)
+    assert out.data_ptr() != again.data_ptr() != program.out.data_ptr()
+    keep = mask[..., 0] < 0.5
+    assert torch.equal(out[keep], gt[keep])
+
+
+def test_cast_params_recaptures(cuda):
+    """`cast_params` drops the installed program, whose graph holds the
+    float32 parameters' addresses: the next call runs eagerly on the bf16
+    parameters, and a program captured after the cast replays that call."""
+    sampler = SamplerConfig(method="ddim", num_steps=6, eta=0.9, injection=True)
+    pipe, gt, mask = _small_pipeline(sampler)
+    pipe.install_program(2, sampler, pipe.compile_batch(2))
+    f32 = pipe.inpaint(gt, mask, 5)
+    pipe.cast_params(torch.bfloat16)
+    assert pipe.installed_program(2, sampler) is None
+    assert all(p.dtype == torch.bfloat16 for p in pipe.model.parameters())
+    eager = pipe.inpaint(gt, mask, 5)
+    assert not torch.equal(eager, f32)
+    program = pipe.compile_batch(2)
+    assert isinstance(program.graph, torch.cuda.CUDAGraph)
+    pipe.install_program(2, sampler, program)
+    assert torch.equal(pipe.inpaint(gt, mask, 5), eager)
 
 
 def _weights(shape, seed, device):

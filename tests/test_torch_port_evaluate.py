@@ -563,13 +563,13 @@ def test_evaluate_empty_mask_samples_stay_aligned(tmp_path):
 
 
 def test_unported_branches_raise_before_building(data_tree, tmp_path, monkeypatch):
-    """A checkpoint directory without a checkpoint raises FileNotFoundError,
-    the program cache NotImplementedError naming what is missing, before a
-    model is built (training checkpoint directories are read since training
-    was ported: tests/test_torch_port_training.py); `--fid_stats` without
-    `--fid_weights` raises ValueError as in JAX. (`--save_trajectory` and the
-    repaint and unipc presets run since the rest of sampling was ported:
-    test_save_trajectory_and_the_new_presets.)"""
+    """A checkpoint directory without a checkpoint raises FileNotFoundError
+    before a model is built (training checkpoint directories are read since
+    training was ported: tests/test_torch_port_training.py); `--fid_stats`
+    without `--fid_weights` raises ValueError as in JAX. (`--save_trajectory`
+    and the repaint and unipc presets run since the rest of sampling was
+    ported: test_save_trajectory_and_the_new_presets; `--program_cache` since
+    the warm program cache was: tests/test_torch_port_aot.py.)"""
     def never(*a, **kw):
         raise AssertionError("built a pipeline")
 
@@ -581,8 +581,6 @@ def test_unported_branches_raise_before_building(data_tree, tmp_path, monkeypatc
     cases = [(["--checkpoint", str(tmp_path / "orbax")], FileNotFoundError, "no checkpoints"),
              (["--checkpoint", str(tmp_path / "orbax"), "--use_ema"], FileNotFoundError,
               "no checkpoints"),
-             (["--program_cache", str(tmp_path / "aot")], NotImplementedError,
-              "--program_cache"),
              (["--fid_stats", "s.npz"], ValueError, "--fid_weights")]
     for extra, exc, match in cases:
         with pytest.raises(exc, match=match):

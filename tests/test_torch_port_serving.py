@@ -1,6 +1,6 @@
 """The port's serving layer: the micro-batching dispatcher, its HTTP server and
-`cli.serve`, against the JAX package's contract (tests/test_serving.py, less
-the AOT program cache, which the port leaves out).
+`cli.serve`, against the JAX package's contract (tests/test_serving.py; its
+AOT program cache is held in tests/test_torch_port_aot.py).
 
 The model is the tiny UNet of tests/test_serving.py with its zero-initialised
 output convs re-drawn, so that the hole depends on the weights. Every wait is
@@ -755,8 +755,9 @@ def test_cli_defaults_and_left_out_flags():
     args = serve_cli.parse_args([])
     assert (args.preset, args.device, args.batch_size) == ("dpm-25-sde", "cuda", 8)
     assert list(serve_cli.build_presets(args)) == ["dpm-25-sde"]
-    with pytest.raises(SystemExit):  # no AOT program cache in the port
-        serve_cli.parse_args(["--program_cache", "/nowhere"])
+    # the program cache takes a directory (tests/test_torch_port_aot.py)
+    assert args.program_cache is None
+    assert serve_cli.parse_args(["--program_cache", "/nowhere"]).program_cache == "/nowhere"
     for bad in (["--refine_tier", "1.0"], ["--preset", "nope"],
                 ["--preset", "consistency-1", "--refine_tier", "0.5"]):
         with pytest.raises(SystemExit):
