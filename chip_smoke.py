@@ -98,11 +98,24 @@ Phases, one line each (or a few), any failure exits non-zero:
    `cli.evaluate --program_cache` against the run without it; then
    `cast_params(torch.bfloat16)` and `split_decoder_skips` forwards against
    their float32 and concatenating counterparts;
-12. a JSON line of the kernels, then the contract line
+12. distillation at full width: `fidm_tpu_torch.cli.distill` from phase 5's
+   `.pt` on phase 10's PNGs and masks, batch 4: progressive (4 -> 2 -> 1, 2
+   steps a round), consistency distillation (grid 40) and consistency
+   training, 3 steps each (every loss finite, attention launches 4 per
+   forward: 12 / 12 / 8 a step, none in a backward; the student
+   directories' layout, grids and metadata; ms per step, images/s, peak
+   memory, seconds per save); `cli.evaluate` on student_2/ with its grid
+   and the mean_type of its metadata, `--preset consistency-2` and
+   `cli.generate --method consistency` on consistency/; `cli.export_torch`
+   of student_2/ (bit-equal, strict load, the same per-sample metrics);
+   then one step of each kind with the kernel against the plain attention,
+   the target network bit-equal to a module holding the EMA tensors, the
+   frozen teacher unmoved;
+13. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
 Both TF32 switches are off in phases 1-7, 9 and 11, so float32 products and
-convolutions are full float32 wherever numbers are compared. Phases 8 and 10
+convolutions are full float32 wherever numbers are compared. Phases 8, 10 and 12
 run the CLIs under torch's own switches, as a user's process has them: there
 the metric networks keep full float32 by their own scoping, which its gates
 test. Without a CUDA device, or without the `fidm_tpu_torch` package beside
@@ -2548,6 +2561,352 @@ def phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi):
     return launched
 
 
+# Phase 12, distillation at full width from phase 5's `.pt` on phase 10's 8
+# training PNGs and masks, batch 4: `cli.distill` progressive (4 -> 2 -> 1,
+# 2 steps a round), consistency distillation and consistency training (3
+# steps each), the students read back, one step of each kind kernel against
+# plain, and `cli.export_torch` of student_2/.
+DISTILL_ROUND_STEPS = 2
+CONSISTENCY_STEPS = 3
+# Forwards per step of each kind, each with n_attn attention launches and
+# none in its backward: progressive runs the teacher twice and the student
+# once, consistency distillation the teacher, the target network and the
+# student, consistency training the target network and the student.
+DISTILL_FORWARDS = {"progressive": 3, "consistency": 3, "consistency-training": 2}
+# One step of each kind from the same weights and draws, the attention
+# kernel against the plain version forced: the forwards differ by the bf16
+# rounding of the attention logits (2e-2 of a forward's max, phase 4), the
+# teacher's and the target's reach the loss only through its target, the
+# student's backward is the plain version's in both. The loss is a mean
+# over 786432 weighted squared errors (progressive) or of 4 pseudo-Huber
+# norms over 196608 errors each, the gradient norm a norm over 93.6M
+# gradients: each held to the forward's own bound of 5e-2, relative, as [10]
+# holds the train step.
+DISTILL_KERNEL_TOL = 5e-2
+# The JAX CLI's metadata keys (`fidm_tpu/cli/distill.py`).
+STUDENT_META = {"student_steps", "mean_type", "schedule", "diffusion_steps", "timesteps_grid"}
+CONSISTENCY_META = {"mode", "mean_type", "schedule", "diffusion_steps", "sampler_method"}
+
+
+def phase_distill(torch, np, ckpt, n_attn, smi):
+    """Phase 12: distillation at full width. `cli.distill` in its three
+    modes from phase 5's `.pt`, every step's launches and loss gated, the
+    student directories read by `cli.evaluate` and `cli.generate`, one step
+    of each kind with the kernel against the plain attention (the teacher
+    left as it was, the target network the EMA tensors), and
+    `cli.export_torch` of student_2/ (bit-equal, its evaluate run equal to
+    the directory's). Returns the bf16 attention launches of the phase's
+    kernel-path calls."""
+    import contextlib
+
+    import fidm_tpu_torch.distill as distill_pkg
+    import fidm_tpu_torch.training as training_pkg
+    from fidm_tpu_torch.cli import distill as distill_cli
+    from fidm_tpu_torch.cli import evaluate as evaluate_cli
+    from fidm_tpu_torch.cli import export_torch as export_cli
+    from fidm_tpu_torch.cli import generate as generate_cli
+    from fidm_tpu_torch.data import create_inpainting_dataloaders
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.distill import make_consistency_step, make_distill_step
+    from fidm_tpu_torch.distill.consistency import _at_params
+    from fidm_tpu_torch.distill.progressive import unet_apply
+    from fidm_tpu_torch.models import InpaintingUNet, ffhq256_config
+    from fidm_tpu_torch.models.weights import load_adm_checkpoint
+    from fidm_tpu_torch.ops import LAUNCHES, kernel_override
+    from fidm_tpu_torch.training import (CheckpointManager, TrainState, init_ema,
+                                         make_lr_schedule, make_optimizer)
+
+    t_phase = time.perf_counter()
+    cfg = ffhq256_config()
+    size = cfg.image_size
+    total = collections.Counter()
+    sched_q = DiffusionSchedule.create("quadratic", 1000, device="cpu")
+
+    # cli.distill's steps and saves, recorded where the CLI looks them up
+    record = {"steps": [], "saves": []}
+    real = (distill_pkg.make_distill_step, distill_pkg.make_consistency_step,
+            training_pkg.CheckpointManager)
+
+    def recording(make):
+        def made(*args, **kw):
+            step = make(*args, **kw)
+
+            def recorded(state, teacher, batch, draws):
+                before = LAUNCHES["attention.bf16"]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                state, metrics = step(state, teacher, batch, draws)
+                end.record()
+                end.synchronize()
+                record["steps"].append((float(metrics["loss"]), start.elapsed_time(end),
+                                        (time.perf_counter() - t0) * 1e3,
+                                        LAUNCHES["attention.bf16"] - before))
+                return state, metrics
+
+            return recorded
+
+        return made
+
+    class TimedManager(real[2]):
+        def save(self, *args, **kw):
+            t0 = time.perf_counter()
+            result = super().save(*args, **kw)
+            record["saves"].append(time.perf_counter() - t0)
+            return result
+
+    def cli_distill(kind, argv, n_steps):
+        record.update(steps=[], saves=[])
+        LAUNCHES.clear()
+        # what earlier phases left for the collector is not the CLI's
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        report = distill_cli.main(argv)
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+        total.update(launches)
+        steps = record["steps"]
+        # after the first step: it pays for the allocator's growth and cuDNN's choices
+        ev, host = [s[1] for s in steps[1:]], [s[2] for s in steps[1:]]
+        ms = float(np.mean(ev)) if ev else float("nan")
+        per_step = n_attn * DISTILL_FORWARDS[kind]
+        print(f"[12] cli.distill --mode {kind}: {secs:.3f} s wall, {len(steps)} steps, losses "
+              f"{[round(s[0], 5) for s in steps]}; after the first step {ms:.3f} ms per step by "
+              f"CUDA events ({', '.join(f'{x:.3f}' for x in ev)}), "
+              f"{float(np.mean(host)) if host else float('nan'):.3f} ms by host clock, "
+              f"{BATCH / ms * 1e3:.2f} training images/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of it "
+              f"{held / 2**30:.3f} GiB held before the call; checkpoint saves "
+              f"{', '.join(f'{x:.3f}' for x in record['saves'])} s; attention launches per step "
+              f"{[s[3] for s in steps]}; {smi}", flush=True)
+        check(len(steps) == n_steps, f"[12] {kind}: {len(steps)} steps, not {n_steps}")
+        check(all(np.isfinite(s[0]) for s in steps), f"[12] {kind}: a non-finite loss")
+        check(all(s[3] == per_step for s in steps)
+              and launches == {"attention": per_step * n_steps,
+                               "attention.bf16": per_step * n_steps},
+              f"[12] {kind}: launches {launches}, per step {[s[3] for s in steps]}, not "
+              f"{n_attn} x {DISTILL_FORWARDS[kind]} forwards of the bf16 kernel and none in "
+              f"a backward")
+        return report
+
+    def run_cli(label, main, argv, evals):
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        result = main(argv)
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in sorted(LAUNCHES.items()) if v}
+        total.update(launches)
+        print(f"[12] {label}: {secs:.3f} s wall, {evals} model evaluations; launches "
+              f"{launches}", flush=True)
+        check(launches == {"attention": n_attn * evals, "attention.bf16": n_attn * evals},
+              f"[12] {label}: launches {launches}, not {n_attn} x {evals}")
+        return result
+
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_distill_") as tmp:
+        tmp = Path(tmp)
+        train_dir, val_dir, mask_root, masks = write_train_tree(np, tmp / "data", size)
+        common = ["--train_dir", str(train_dir), "--mask_dir", str(mask_root), "--batch_size",
+                  str(BATCH), "--device", "cuda"]
+        out_p, out_c, out_t = tmp / "progressive", tmp / "consistency", tmp / "training"
+        distill_pkg.make_distill_step = recording(real[0])
+        distill_pkg.make_consistency_step = recording(real[1])
+        training_pkg.CheckpointManager = TimedManager
+        try:
+            report = cli_distill("progressive", common + [
+                "--checkpoint", str(ckpt), "--out", str(out_p), "--teacher_steps", "4",
+                "--final_steps", "1", "--steps_per_round", str(DISTILL_ROUND_STEPS)],
+                2 * DISTILL_ROUND_STEPS)
+            rounds = [r["student_steps"] for r in report["rounds"]]
+            check(rounds == [2, 1], f"[12] progressive rounds {rounds}")
+            for r in report["rounds"]:
+                K = r["student_steps"]
+                sdir = out_p / f"student_{K}"
+                grid = json.loads((sdir / "grid.json").read_text())
+                meta = json.loads((sdir / "steps" / "0" / "meta.json").read_text())
+                layout = (sorted(p.name for p in sdir.iterdir()),
+                          sorted(p.name for p in (sdir / "steps" / "0").iterdir()))
+                print(f"[12] student_{K}/: {layout}, grid.json {grid}, metadata {meta}",
+                      flush=True)
+                check(grid == {"grid": distill_cli.student_grid(1000, K),
+                               "mean_type": "velocity"}
+                      and all(np.diff(grid["grid"]) < 0) and r["grid"] == grid["grid"],
+                      f"[12] student_{K}: grid {grid}")
+                check(layout == (["grid.json", "steps"], ["meta.json", "state.pt"])
+                      and set(meta) == STUDENT_META and meta["timesteps_grid"] == grid["grid"],
+                      f"[12] student_{K}: layout {layout}, metadata {meta}")
+            for kind, out, extra in (("consistency", out_c, ["--grid_size", "40"]),
+                                     ("consistency-training", out_t, [])):
+                report = cli_distill(kind, common + [
+                    "--checkpoint", str(ckpt), "--mode", kind, "--out", str(out),
+                    "--steps_per_round", str(CONSISTENCY_STEPS), *extra], CONSISTENCY_STEPS)
+                meta = json.loads((out / "consistency" / "steps" / "0" / "meta.json").read_text())
+                check(report["checkpoint"] == str(out / "consistency")
+                      and set(meta) == CONSISTENCY_META and meta["mode"] == kind,
+                      f"[12] {kind}: report {report}, metadata {meta}")
+        finally:
+            (distill_pkg.make_distill_step, distill_pkg.make_consistency_step,
+             training_pkg.CheckpointManager) = real
+
+        # the students read back: student_2/ on its grid, with the mean_type
+        # its metadata records; consistency/ by the preset and by cli.generate
+        grid = json.loads((out_p / "student_2" / "grid.json").read_text())["grid"]
+        ev = ["--data_dir", str(val_dir), "--mask_dir", str(mask_root), "--num_samples",
+              str(VAL_IMAGES), "--batch_size", str(BATCH), "--device", "cuda"]
+        student_argv = ev + ["--checkpoint", str(out_p / "student_2"), "--output_dir",
+                             str(tmp / "ev_student"), "--timesteps", *map(str, grid)]
+        sampler = evaluate_cli.build_sampler(evaluate_cli.parse_args(student_argv))
+        check(sampler.mean_type.name == "VELOCITY",
+              f"[12] student_2's mean_type read as {sampler.mean_type}")
+        K = preset_steps(sched_q, sampler)[0]
+        run_cli(f"cli.evaluate on student_2/ --timesteps {grid}", evaluate_cli.main,
+                student_argv, K)
+        blob_dir = json.loads((tmp / "ev_student" / "metrics.json").read_text())
+        check_eval_blob(np, "[12] evaluate student_2", blob_dir, EVAL_KEYS, EVAL_PER_SAMPLE,
+                        masks, VAL_IMAGES)
+        check_known_pixels(np, "[12] evaluate student_2", tmp / "ev_student", masks, VAL_IMAGES)
+        preset_argv = ev + ["--checkpoint", str(out_c / "consistency"), "--output_dir",
+                            str(tmp / "ev_consistency"), "--preset", "consistency-2"]
+        K = preset_steps(sched_q, evaluate_cli.build_sampler(
+            evaluate_cli.parse_args(preset_argv)))[0]
+        run_cli("cli.evaluate --preset consistency-2 on consistency/", evaluate_cli.main,
+                preset_argv, K)
+        blob = json.loads((tmp / "ev_consistency" / "metrics.json").read_text())
+        check_eval_blob(np, "[12] evaluate consistency-2", blob, EVAL_KEYS, EVAL_PER_SAMPLE,
+                        masks, VAL_IMAGES)
+        check_known_pixels(np, "[12] evaluate consistency-2", tmp / "ev_consistency", masks,
+                           VAL_IMAGES)
+        gen_dir = tmp / "gen"
+        gen_argv = ["--checkpoint", str(out_t / "consistency"), "--method", "consistency",
+                    "--num_samples", str(BATCH), "--batch_size", str(BATCH), "--output_dir",
+                    str(gen_dir), "--device", "cuda"]
+        K = preset_steps(sched_q, generate_cli.build_sampler(generate_cli.parse_args(gen_argv)))[0]
+        run_cli("cli.generate --method consistency on consistency/ (consistency-training)",
+                generate_cli.main, gen_argv, K)
+        files = sorted(p.name for p in gen_dir.iterdir())
+        check(files == [f"{i:05d}.png" for i in range(BATCH)] + ["grid.png"],
+              f"[12] cli.generate wrote {files}")
+
+        # cli.export_torch of student_2/: bit-equal to the directory's params,
+        # loads with strict=True, and evaluates as the directory did
+        pt = tmp / "student_2.pt"
+        t0 = time.perf_counter()
+        exported = export_cli.main(["--checkpoint", str(out_p / "student_2"), "--out", str(pt),
+                                    "--attention_resolutions", "16", "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        sd = torch.load(pt, weights_only=True)
+        params = CheckpointManager(str(out_p / "student_2")).restore_params("latest")
+        InpaintingUNet(cfg).load_state_dict(sd, strict=True)
+        same = set(sd) == set(params) and all(torch.equal(sd[k], params[k]) for k in params)
+        print(f"[12] cli.export_torch student_2/: {secs:.3f} s wall, report {exported}; loads "
+              f"with strict=True; {len(sd)} tensors bit-equal to the directory's params: "
+              f"{same}", flush=True)
+        check(same and set(exported) == {"out", "bytes", "in_channels", "image_size"},
+              "[12] the export differs from the directory's params")
+        run_cli("cli.evaluate on the exported .pt", evaluate_cli.main,
+                ev + ["--checkpoint", str(pt), "--output_dir", str(tmp / "ev_pt"), "--timesteps",
+                      *map(str, grid), "--mean_type", "velocity"], preset_steps(sched_q, sampler)[0])
+        blob_pt = json.loads((tmp / "ev_pt" / "metrics.json").read_text())
+        same = blob_pt["per_sample"] == blob_dir["per_sample"]
+        print(f"[12] the .pt's evaluate run equals student_2/'s per sample: {same}", flush=True)
+        check(same, "[12] the exported .pt evaluates otherwise than its directory")
+
+        # one step of each kind from the same weights and draws, the kernel
+        # against the plain attention
+        base_sd = load_adm_checkpoint(str(ckpt), cfg)
+        student = InpaintingUNet(cfg)
+        student.load_state_dict(base_sd, strict=True)
+        student = student.to("cuda")
+        teacher = InpaintingUNet(cfg)
+        teacher.load_state_dict(base_sd, strict=True)
+        teacher = teacher.to("cuda").requires_grad_(False)
+        sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
+        loader, _ = create_inpainting_dataloaders(train_dir, val_dir, mask_root,
+                                                  batch_size=BATCH, img_size=size, seed=0)
+        batch = next(iter(loader))
+        steps = {"progressive": (make_distill_step(sched, unet_apply, unet_apply,
+                                                   teacher_steps=4), teacher),
+                 "consistency": (make_consistency_step(sched, unet_apply, unet_apply,
+                                                       grid_size=40), teacher),
+                 "consistency-training": (make_consistency_step(sched, None, unet_apply,
+                                                                grid_size=40), None)}
+
+        def one(kind, plain):
+            step, teach = steps[kind]
+            with torch.no_grad():
+                for name, p in student.named_parameters():
+                    p.copy_(base_sd[name])
+            params = dict(student.named_parameters())
+            state = TrainState.create(
+                student, params, make_optimizer(make_lr_schedule("none", 1e-4, 1),
+                                                weight_decay=0.0),
+                ema_params=None if kind == "progressive" else init_ema(params))
+            torch.cuda.synchronize()
+            before = LAUNCHES["attention.bf16"]
+            ctx = kernel_override(False, "attention") if plain else contextlib.nullcontext()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with ctx:
+                state, metrics = step(state, teach, batch, 0)
+            end.record()
+            end.synchronize()
+            launches = LAUNCHES["attention.bf16"] - before
+            if not plain:
+                total["attention.bf16"] += launches
+            return ({k: float(m) for k, m in metrics.items()}, launches,
+                    start.elapsed_time(end), state)
+
+        def rel(a, b):
+            return abs(a - b) / abs(b)
+
+        for kind in steps:
+            km, k_launches, k_ms, _ = one(kind, False)
+            pm, p_launches, p_ms, state = one(kind, True)
+            print(f"[12] one {kind} step B={BATCH}, kernel vs plain attention: loss "
+                  f"{km['loss']:.6f} / {pm['loss']:.6f} (rel {rel(km['loss'], pm['loss']):.3g}), "
+                  f"grad_norm {km['grad_norm']:.6f} / {pm['grad_norm']:.6f} (rel "
+                  f"{rel(km['grad_norm'], pm['grad_norm']):.3g}), tol {DISTILL_KERNEL_TOL}; "
+                  f"launches {k_launches} / {p_launches}; {k_ms:.3f} / {p_ms:.3f} ms (CUDA "
+                  f"events, the first of each); {smi}", flush=True)
+            check(k_launches == n_attn * DISTILL_FORWARDS[kind] and p_launches == 0,
+                  f"[12] {kind} step: launches {k_launches} kernel, {p_launches} plain")
+            check(rel(km["loss"], pm["loss"]) <= DISTILL_KERNEL_TOL
+                  and rel(km["grad_norm"], pm["grad_norm"]) <= DISTILL_KERNEL_TOL,
+                  f"[12] {kind} step: kernel and plain attention disagree")
+            if state.ema_params is not None:
+                # the target network is the student module at every EMA tensor
+                target = InpaintingUNet(cfg).to("cuda")
+                target.load_state_dict(state.ema_params, strict=True)
+                x = torch.as_tensor(batch["image"], device="cuda")
+                t = torch.full((BATCH,), 500, device="cuda", dtype=torch.int32)
+                cond = (torch.as_tensor(batch["masked_image"], device="cuda"),
+                        torch.as_tensor(batch["mask"], device="cuda"))
+                before = LAUNCHES["attention.bf16"]
+                with torch.inference_mode():
+                    same = torch.equal(_at_params(unet_apply, student, state.ema_params, x, t,
+                                                  *cond), target(x, t, *cond))
+                total["attention.bf16"] += LAUNCHES["attention.bf16"] - before
+                print(f"[12] {kind}: the target network's forward bit-equal to a module "
+                      f"holding the EMA tensors: {same}", flush=True)
+                check(same, f"[12] {kind}: the target network is not the EMA")
+                del target
+            del state
+        moved = [k for k, p in teacher.named_parameters()
+                 if not torch.equal(p, base_sd[k].to("cuda"))]
+        print(f"[12] the frozen teacher after the progressive and consistency steps: "
+              f"{len(moved)} tensors moved", flush=True)
+        check(not moved, f"[12] the teacher moved: {moved[:5]}")
+        del student, teacher
+        torch.cuda.empty_cache()
+    print(f"[12] phase wall {time.perf_counter() - t_phase:.1f} s; bf16 attention launches "
+          f"{total['attention.bf16']}; {smi}", flush=True)
+    return total["attention.bf16"]
+
+
 def main():
     import torch
 
@@ -2871,22 +3230,29 @@ def main():
     # 11. the warm program cache, both TF32 switches off again
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     program_launches = phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi)
+
+    # 12. distillation at full width from phase 5's checkpoint, under torch's
+    # default TF32 switches, as phase 10 trains
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    distill_launches = phase_distill(torch, np, ckpt, n_attn, smi)
     ckpt_dir.cleanup()
 
-    # 12. the record
+    # 13. the record
     # launches: attention_bf16 in phase 3's DDIM-100 call, phase 9's
     # kernel-path calls (the new methods, guidance, the trajectory, the
     # CLIs), phase 10's (cli.train's train and validation forwards, the
-    # remat policies' steps, the CLIs on its checkpoints) and phase 11's
+    # remat policies' steps, the CLIs on its checkpoints), phase 11's
     # (program replays and their recording runs, the servers, the CLI
-    # runs, the forwards), attention_f32 in
+    # runs, the forwards) and phase 12's (cli.distill's steps, the CLIs on
+    # the students and the export, the kernel-path steps and the target
+    # network's forwards), attention_f32 in
     # phase 8's `cli.evaluate --dtype f32` run (its user path; phase 4's
     # float32 forward launched it too), quantize in phase 5's absmax CLI run
     kernels = [dict(name="attention_bf16", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
                     launches=launches["attention.bf16"] + sampling_launches
-                    + training_launches + program_launches,
+                    + training_launches + program_launches + distill_launches,
                     **attn_rows[torch.bfloat16]),
                dict(name="attention_f32", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",

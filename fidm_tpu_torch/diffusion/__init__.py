@@ -1,5 +1,5 @@
-from .gaussian import LossType, ModelMeanType, ModelVarType
+from .gaussian import LossType, ModelMeanType, ModelVarType, noised_ground_truth
 from .schedules import DiffusionSchedule, ddim_timestep_sequence, get_named_beta_schedule
 
 __all__ = ["DiffusionSchedule", "LossType", "ModelMeanType", "ModelVarType",
-           "ddim_timestep_sequence", "get_named_beta_schedule"]
+           "ddim_timestep_sequence", "get_named_beta_schedule", "noised_ground_truth"]

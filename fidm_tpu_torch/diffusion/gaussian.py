@@ -41,6 +41,7 @@ __all__ = [
     "PMeanVariance",
     "condition_mean",
     "condition_score",
+    "noised_ground_truth",
     "apply_inpainting_injection",
     "normal_kl",
     "approx_standard_normal_cdf",
@@ -241,6 +242,17 @@ def condition_score(sched: DiffusionSchedule, pmv: PMeanVariance, x, t,
     pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
     mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
     return pmv._replace(mean=mean, pred_xstart=pred_xstart)
+
+
+def noised_ground_truth(sched: DiffusionSchedule, gt, t, noise):
+    """GT diffused to level t: `q_sample` with `noise` given explicitly (a
+    tensor of gt's shape) or drawn from it (a `torch.Generator` on gt's
+    device), where the JAX function draws from a key. The same generator
+    state (or the same tensor) reproduces the reference's cached GT noise
+    across steps (`gaussian_diffusion.py:85-108`)."""
+    if isinstance(noise, torch.Generator):
+        noise = torch.randn(gt.shape, generator=noise, device=gt.device, dtype=gt.dtype)
+    return q_sample(sched, gt, t, noise)
 
 
 def apply_inpainting_injection(

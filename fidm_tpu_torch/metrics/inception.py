@@ -37,6 +37,7 @@ __all__ = [
     "convert_torch_inception_weights",
     "full_float32",
     "InceptionPool3",
+    "inception_pool3",
     "preprocess",
     "InceptionFeatureExtractor",
 ]
@@ -233,6 +234,15 @@ class InceptionPool3(nn.Module):
                 x = _inception_e(self.mixed[name], x,
                                  pool="max" if name == "Mixed_7c" else "avg")
         return x.mean(dim=(2, 3))
+
+
+def inception_pool3(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's functional form: folded params
+    (`convert_torch_inception_weights`) and [B,299,299,3] NHWC in [-1,1] ->
+    [B,2048] pool3 features, on x's device in full float32."""
+    model = InceptionPool3(params).to(x.device)
+    with full_float32():
+        return model(x.permute(0, 3, 1, 2))
 
 
 def preprocess(images01: torch.Tensor) -> torch.Tensor:

@@ -558,20 +558,16 @@ def _repaint_tables(sched: DiffusionSchedule, cfg: SamplerConfig) -> Dict[str, n
     return rows
 
 
-def _consistency_grid(num_timesteps: int, steps: int) -> np.ndarray:
-    """`steps`+1 descending timestep boundaries T-1 -> 0 (a copy of the JAX
-    package's `distill.consistency.consistency_grid`)."""
-    return np.round(np.linspace(num_timesteps - 1, 0, steps + 1)).astype(np.int32)
-
-
 def _consistency_seq(sched: DiffusionSchedule, cfg: SamplerConfig) -> tuple:
     """The K-evaluation grid of method="consistency": the first K of the K+1
     consistency-grid boundaries (the last, 0, is only a renoise target), with
     rounding duplicates dropped; an explicit cfg.timesteps wins."""
     if cfg.timesteps is not None:
         return cfg.timesteps
+    from ..distill.consistency import consistency_grid
+
     K = cfg.num_steps or sched.num_timesteps
-    seq = _consistency_grid(sched.num_timesteps, K)[:K]
+    seq = consistency_grid(sched.num_timesteps, K)[:K]
     seq = seq[np.concatenate(([True], np.diff(seq) < 0))]
     return tuple(int(t) for t in seq)
 

@@ -275,6 +275,79 @@ def test_small_train_step_on_the_card(cuda):
     model.config = cfg
 
 
+@pytest.mark.parametrize("kind,forwards", [("progressive", 3), ("consistency", 3),
+                                           ("consistency-training", 2)])
+def test_small_distill_step_on_the_card(cuda, kind, forwards):
+    """A distillation step of a small UNet of each kind: the kernel once per
+    attention block in each forward (teacher, target network, student), none
+    in the backward; the loss and gradient norm within 5e-2 of the step with
+    the plain attention (chip_smoke.py [12]'s bound); the frozen teacher
+    unmoved; the target network's forward bit-equal to a module holding the
+    EMA tensors."""
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.distill import make_consistency_step, make_distill_step
+    from fidm_tpu_torch.distill.consistency import _at_params
+    from fidm_tpu_torch.distill.progressive import unet_apply
+    from fidm_tpu_torch.models import InpaintingUNet
+    from fidm_tpu_torch.training import TrainState, init_ema, make_lr_schedule, make_optimizer
+
+    cfg = UNetConfig(image_size=32, model_channels=64, channel_mult=(1, 2),
+                     attention_resolutions=(2,), num_head_channels=64)
+    torch.manual_seed(0)
+    model = InpaintingUNet(cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    teacher = InpaintingUNet(cfg)
+    teacher.load_state_dict(base)
+    teacher = teacher.to(cuda).requires_grad_(False)
+    model = model.to(cuda)
+    n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
+    rng = np.random.default_rng(0)
+    img = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    mask = np.zeros((2, 32, 32, 1), np.float32)
+    mask[:, 8:24, 8:24] = 1.0
+    batch = {"image": img, "masked_image": img * (1 - mask), "mask": mask}
+    sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
+    if kind == "progressive":
+        step = make_distill_step(sched, unet_apply, unet_apply, teacher_steps=8)
+    else:
+        step = make_consistency_step(sched, unet_apply if kind == "consistency" else None,
+                                     unet_apply, grid_size=20)
+        teacher = teacher if kind == "consistency" else None
+
+    def one(plain=False):
+        model.load_state_dict(base)
+        params = dict(model.named_parameters())
+        state = TrainState.create(model, params, make_optimizer(make_lr_schedule("none", 1e-4, 1)),
+                                  ema_params=None if kind == "progressive" else init_ema(params))
+        before = LAUNCHES["attention"]
+        if plain:
+            with kernel_override(False, "attention"):
+                state, m = step(state, teacher, batch, 3)
+        else:
+            state, m = step(state, teacher, batch, 3)
+        return {k: v.item() for k, v in m.items()}, LAUNCHES["attention"] - before, state
+
+    kernel, launches, _ = one()
+    assert launches == forwards * n_attn and np.isfinite(kernel["loss"])
+    plain, plain_launches, state = one(plain=True)
+    assert plain_launches == 0
+    for key in ("loss", "grad_norm"):
+        assert abs(kernel[key] - plain[key]) <= 5e-2 * abs(plain[key]), key
+    if teacher is not None:
+        assert all(torch.equal(p.cpu(), base[k]) for k, p in teacher.state_dict().items())
+    if state.ema_params is not None:
+        target = InpaintingUNet(cfg).to(cuda)
+        target.load_state_dict(state.ema_params)
+        x, mi, m = (torch.from_numpy(batch[k]).to(cuda) for k in ("image", "masked_image", "mask"))
+        t = torch.tensor([10, 600], device=cuda)
+        with torch.inference_mode():
+            assert torch.equal(_at_params(unet_apply, model, state.ema_params, x, t, mi, m),
+                               target(x, t, mi, m))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 2, 16, 64), 7, torch.float32, cuda)
     with pytest.raises(TypeError):

@@ -30,6 +30,7 @@ from fidm_tpu.sampling import inpaint_sample as jax_inpaint_sample
 from fidm_tpu.sampling import sample as jax_sample
 from fidm_tpu.sampling import sampler as jax_sampler
 from fidm_tpu_torch.diffusion import DiffusionSchedule, ModelMeanType, ModelVarType
+from fidm_tpu_torch.distill.consistency import consistency_grid as port_consistency_grid
 from fidm_tpu_torch.models import InpaintingUNet, UNet, UNetConfig
 from fidm_tpu_torch.models.weights import state_dict_from_jax
 from fidm_tpu_torch.sampling import SamplerConfig, inpaint_sample, sample
@@ -158,7 +159,7 @@ def test_consistency_seq_bit_equal(k):
                                              pcfg)
         assert ours == jax_sampler._consistency_seq(JaxSchedule.create("linear", T), jcfg)
         for steps in (1, 2, k):
-            np.testing.assert_array_equal(port_sampler._consistency_grid(T, steps),
+            np.testing.assert_array_equal(port_consistency_grid(T, steps),
                                           consistency_grid(T, steps))
 
 

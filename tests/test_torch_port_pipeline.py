@@ -204,7 +204,10 @@ def test_package_imports_no_jax():
         "assert {'fidm_tpu_torch.quant.int8', 'fidm_tpu_torch.quant.calibrate', "
         "'fidm_tpu_torch.ops.quantize', 'fidm_tpu_torch.data.dataset', "
         "'fidm_tpu_torch.cli.quantize', 'fidm_tpu_torch.serving.server', "
-        "'fidm_tpu_torch.cli.serve'} <= set(names), names\n"
+        "'fidm_tpu_torch.cli.serve', 'fidm_tpu_torch.distill', "
+        "'fidm_tpu_torch.distill.progressive', 'fidm_tpu_torch.distill.consistency', "
+        "'fidm_tpu_torch.cli.distill', 'fidm_tpu_torch.cli.export_torch'} <= set(names), "
+        "names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fidm_tpu'))\n"
         "print(bad)\n"
