@@ -111,10 +111,23 @@ Phases, one line each (or a few), any failure exits non-zero:
    then one step of each kind with the kernel against the plain attention,
    the target network bit-equal to a module holding the EMA tensors, the
    frozen teacher unmoved;
-13. a JSON line of the kernels, then the contract line
+13. the native data helpers and a one-rank process group: the port's g++
+   libraries built (maskgen must build; imgload wherever jpeglib.h and
+   png.h are found), the fused normalize/compose against numpy on a 256²
+   batch of 4 (one ulp), the native decode against PIL on phase 10's PNGs
+   (bit for bit), 256² masks of each kind (coverage, repeatable), with host
+   times; then a one-rank NCCL group started as a launcher starts one and
+   `create_mesh(data=1, fsdp=1)` over it: 3 full-width train steps, a
+   progressive and a consistency step, and `ddim-100` through
+   `InpaintingPipeline(mesh=)`, each bit-equal to the same calls without the
+   mesh (phase 3's output, 404 launches), and `cli.train` for one epoch and
+   again over its directory with and without the group (the same history,
+   files, best.json and state); ms per step with and without the mesh; the
+   group destroyed after it;
+14. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
-Both TF32 switches are off in phases 1-7, 9 and 11, so float32 products and
+Both TF32 switches are off in phases 1-7, 9, 11 and 13, so float32 products and
 convolutions are full float32 wherever numbers are compared. Phases 8, 10 and 12
 run the CLIs under torch's own switches, as a user's process has them: there
 the metric networks keep full float32 by their own scoping, which its gates
@@ -162,6 +175,10 @@ BATCH = 4
 # version at each of these batch sizes and at BENCH_BATCH, at the shapes the
 # UNet gives it.
 SERVE_BATCHES = (1, 4, 8)
+# Phase 11's server warms two rungs of that ladder (its restart's requests
+# are of batch 1 and 8): a cut of depth that keeps the script well inside
+# its time limit.
+PROGRAM_BATCHES = (1, 8)
 # The main path, kernel against plain attention (phase 4), with what this
 # script measured on an H100 SXM. One UNet forward, max abs / max |plain|: in
 # float32 the kernel's 3xTF32 products and the order of the sums differ (4.0e-6;
@@ -2273,8 +2290,9 @@ def phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi):
     """Phase 11: the warm program cache at full width, on phase 3's model
     (phase 5's `.pt`) and inputs, both TF32 switches off. `refs` holds eager
     outputs and seconds of earlier phases: phase 3's DDIM-100 and
-    `dpm-25-sde` at batch 4 with seed 0, phase 7's `ddim-100-deep` and
-    `ddim-100` at batch 16 with seed 1. `serving6` is phase 6's warm-up
+    `dpm-25-sde` at batch 4 with seed 0, phase 7's `ddim-100-deep` at batch
+    16 with seed 1 (bench.py's cell; its `ddim-100` there is not replayed:
+    a cut of depth, as PROGRAM_BATCHES). `serving6` is phase 6's warm-up
     seconds and instrumented batch of 8. Returns the bf16 attention launches
     of the phase's replays and calls."""
     from fidm_tpu_torch import SAMPLER_PRESETS, InpaintingPipeline, PipelineConfig
@@ -2375,16 +2393,17 @@ def phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi):
     # bench.py's cell: batch 16, against phase 7's first timed call (seed 1)
     bgt, bmask = bench_inputs(torch, np, size)
     bkeep = bmask[..., 0] < 0.5
-    for name in ("ddim-100-deep", "ddim-100"):
+    for name in ("ddim-100-deep",):
         ref, secs = refs[f"bench {name}"]
         program_run(f"[11] {name} B={BENCH_BATCH} one seed (bench.py's cell)", name, bgt,
                     bmask, bkeep, 1, ref, secs, expect[name])
     del bgt, bmask
 
     # --- the server: phase 6's flags, presets and ladder, a program cache
-    args = serve_cli.parse_args(["--checkpoint", str(ckpt)] + SERVE_ARGV)
+    args = serve_cli.parse_args(["--checkpoint", str(ckpt)] + SERVE_ARGV
+                                + ["--batch_sizes", *map(str, PROGRAM_BATCHES)])
     presets = serve_cli.build_presets(args)
-    n_programs = len(presets) * len(SERVE_BATCHES)
+    n_programs = len(presets) * len(PROGRAM_BATCHES)
     with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_programs_") as cache:
         cache = Path(cache)
 
@@ -2403,7 +2422,7 @@ def phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi):
 
         def installed(spipe):
             return [p for p in (spipe.installed_program(b, cfg, True) for cfg in
-                                presets.values() for b in SERVE_BATCHES) if p is not None]
+                                presets.values() for b in PROGRAM_BATCHES) if p is not None]
 
         spipe, httpd, dispatcher, warm_s, held = start()
         httpd.server_close()
@@ -2411,7 +2430,7 @@ def phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi):
         written, programs = stamps(), installed(spipe)
         static = sum(p.static_bytes for p in programs)
         print(f"[11] serve(..., warmup=True, program_cache_dir=DIR) with phase 6's presets "
-              f"{list(presets)} and batch sizes {SERVE_BATCHES}: warm-up {warm_s:.2f} s "
+              f"{list(presets)} and batch sizes {PROGRAM_BATCHES}: warm-up {warm_s:.2f} s "
               f"(phase 6, eager: {serving6[0]:.2f} s); {len(written)} manifests written; "
               f"{len(programs)} programs installed, holding {held} bytes of device memory "
               f"({static} of it static buffers); {smi}", flush=True)
@@ -2907,6 +2926,407 @@ def phase_distill(torch, np, ckpt, n_attn, smi):
     return total["attention.bf16"]
 
 
+PARALLEL_STEPS = 3     # phase 13's train steps with and without the one-rank mesh
+PARALLEL_TIMED = 4     # then timed steps of each run (plain, mesh, plain again)
+NATIVE_MASKS = 8       # masks of each kind per seed ladder in phase 13
+MASK_COVERAGE = (0.01, 0.80)  # the JAX package's own bounds (tests/test_native.py)
+
+
+def host_ms(fn, n):
+    """Host milliseconds per call of `fn` over n calls (after one)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_native(torch, np, train_dir, size, smi):
+    """Phase 13's native half: both helper libraries built with g++ (maskgen
+    must build; imgload wherever jpeglib.h and png.h are found), the fused
+    normalize against numpy on a 256² batch of 4, native decode against PIL
+    on phase 10's PNGs bit for bit, 256² masks of each kind, and the host
+    times of each."""
+    from PIL import Image
+
+    from fidm_tpu_torch.data import random_mask
+    from fidm_tpu_torch.data.dataset import _normalize_compose, list_images
+    from fidm_tpu_torch.native import build as native_build
+    from fidm_tpu_torch.native.imgload import decode_resize
+
+    t0 = time.perf_counter()
+    masklib, imglib = native_build.load(), native_build.load_imgload()
+    secs = time.perf_counter() - t0
+    headers = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                             input="#include <jpeglib.h>\n#include <png.h>\n",
+                             capture_output=True, text=True).returncode == 0
+    print(f"[13] native helpers: g++ {' '.join(native_build.CXX_FLAGS)}, {secs:.1f} s; maskgen "
+          f"{native_build.lib_path('native').name if masklib else native_build.last_error()}; "
+          f"jpeglib.h and png.h found: {headers}; imgload "
+          f"{native_build.lib_path('imgload').name if imglib else native_build.last_error('imgload')}"
+          f"; the dataset decodes "
+          f"{'with the native loader' if imglib else 'with PIL, as fidm_tpu would here'}",
+          flush=True)
+    check(masklib is not None, f"[13] maskgen did not build: {native_build.last_error()}")
+    check(imglib is not None or not headers,
+          f"[13] imgload did not build with its headers present: "
+          f"{native_build.last_error('imgload')}")
+
+    # normalize and compose: the C++ helper against numpy, a 256² batch of 4
+    rng = np.random.default_rng(13)
+    u8 = rng.integers(0, 256, (BATCH, size, size, 3), dtype=np.uint8)
+    masks = np.stack([random_mask(np.random.default_rng(i), size) for i in range(BATCH)])
+    native = [_normalize_compose(u, m) for u, m in zip(u8, masks)]
+    image = np.stack([n[0] for n in native])
+    masked = np.stack([n[1] for n in native])
+    numpy_image = u8.astype(np.float32) / 255.0 * 2.0 - 1.0
+    ulp = float(np.spacing(np.float32(1.0)))
+    gap = float(np.abs(image - numpy_image).max())
+    n_diff = int((image != numpy_image).sum())
+    native_ms = host_ms(lambda: [_normalize_compose(u, m) for u, m in zip(u8, masks)], 5) / BATCH
+    numpy_ms = host_ms(lambda: [(lambda im: (im, im * (1.0 - m)))(
+        u.astype(np.float32) / 255.0 * 2.0 - 1.0) for u, m in zip(u8, masks)], 5) / BATCH
+    print(f"[13] normalize/compose {BATCH}x{size}^2: native against numpy max abs {gap:.3g} "
+          f"(tol one float32 ulp of 1, {ulp:.3g}: u8 * (2/255) - 1 against u8 / 255 * 2 - 1), "
+          f"{n_diff} of {image.size} values differ; host ms per image native {native_ms:.4f}, "
+          f"numpy {numpy_ms:.4f} (host times on the card's machine); {smi}", flush=True)
+    check(gap <= ulp and np.array_equal(masked, image * (1.0 - masks)),
+          "[13] the native normalize/compose disagrees with numpy")
+
+    # decode: the native loader against PIL on phase 10's PNGs
+    paths = list_images(train_dir)
+    if imglib is not None:
+        same = all(np.array_equal(decode_resize(p, size, "RGB"), np.asarray(
+            Image.open(p).convert("RGB").resize((size, size), Image.BILINEAR))) for p in paths)
+        dec_ms = host_ms(lambda: [decode_resize(p, size, "RGB") for p in paths], 3) / len(paths)
+    else:
+        same, dec_ms = None, float("nan")
+    pil_ms = host_ms(lambda: [np.asarray(Image.open(p).convert("RGB").resize(
+        (size, size), Image.BILINEAR)) for p in paths], 3) / len(paths)
+    print(f"[13] decode {len(paths)} PNGs at {size}^2: native bit-equal to PIL: {same}; host ms "
+          f"per image native {dec_ms:.4f}, PIL {pil_ms:.4f}; {smi}", flush=True)
+    check(same is None or same, "[13] the native decode differs from PIL")
+
+    # masks of each kind at 256²: in range, the same twice from one seed
+    rows = []
+    for kind in ("box", "brush"):
+        covs, repeat = [], True
+        for s in range(NATIVE_MASKS):
+            a = random_mask(np.random.default_rng(s), size, kind=kind)
+            b = random_mask(np.random.default_rng(s), size, kind=kind)
+            repeat &= np.array_equal(a, b) and set(np.unique(a)) <= {0.0, 1.0}
+            covs.append(float(a.mean()))
+        n_ms = host_ms(lambda: random_mask(np.random.default_rng(1), size, kind=kind), 5)
+        p_ms = host_ms(lambda: random_mask(np.random.default_rng(1), size, kind=kind,
+                                           use_native=False), 2)
+        rows.append(f"{kind}: coverage {min(covs):.3f}-{max(covs):.3f}, repeatable {repeat}, "
+                    f"host ms per mask native {n_ms:.4f}, numpy {p_ms:.4f}")
+        check(repeat and all(MASK_COVERAGE[0] <= c <= MASK_COVERAGE[1] for c in covs),
+              f"[13] {kind} masks: coverage {covs}, repeatable {repeat}")
+    print(f"[13] {NATIVE_MASKS} {size}^2 masks of each kind (coverage bounds "
+          f"{MASK_COVERAGE}): {'; '.join(rows)}; {smi}", flush=True)
+    return imglib is not None
+
+
+def phase_parallel(torch, np, ckpt, n_attn, refs, smi):
+    """Phase 13: the native data helpers (`phase_native`), then a one-rank
+    NCCL process group started as a launcher starts one, a
+    `create_mesh(data=1, fsdp=1)` over it, and at full width from phase 5's
+    `.pt`: 3 train steps (and 3 more with the biases frozen by a
+    param_mask), a progressive and a consistency distillation step
+    and `ddim-100` through `InpaintingPipeline(mesh=)`, each bit-equal to the
+    same calls without the mesh (phase 3's output for the pipeline), and
+    `cli.train` for one epoch and once more over it (a save, a best, an
+    overwrite) with and without the group: the same history and checkpoint
+    directory. Both TF32 switches off and cuDNN deterministic, so that two
+    runs of one step are comparable bit for bit. Destroys the group at the
+    end. Returns the bf16 attention launches of the phase's kernel-path
+    calls."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from fidm_tpu_torch import InpaintingPipeline, PipelineConfig
+    from fidm_tpu_torch.cli import train as train_cli
+    from fidm_tpu_torch.data import create_inpainting_dataloaders
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.distill import make_consistency_step, make_distill_step
+    from fidm_tpu_torch.distill.progressive import unet_apply
+    from fidm_tpu_torch.models import InpaintingUNet, ffhq256_config
+    from fidm_tpu_torch.models.weights import load_adm_checkpoint
+    from fidm_tpu_torch.ops import LAUNCHES
+    from fidm_tpu_torch.parallel import create_mesh, multihost, shard_batch
+    from fidm_tpu_torch.pipeline import create_model_and_schedule
+    from fidm_tpu_torch.sampling.sampler import _ddim_tables
+    from fidm_tpu_torch.training import (TrainState, init_ema, make_lr_schedule,
+                                         make_optimizer, make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = ffhq256_config()
+    size = cfg.image_size
+    total = collections.Counter()
+    held = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    env_keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_parallel_") as tmp:
+        tmp = Path(tmp)
+        train_dir, val_dir, mask_root, _ = write_train_tree(np, tmp / "data", size)
+        native_loader = phase_native(torch, np, train_dir, size, smi)
+        held.append("native normalize (1 ulp), decode (bits), masks")
+
+        # cli.train for one epoch, then once more over the same directory
+        argv = ["--train_dir", str(train_dir), "--val_dir", str(val_dir), "--mask_dir",
+                str(mask_root), "--pretrained", str(ckpt), "--batch_size", str(BATCH),
+                "--device", "cuda", "--num_epochs", "1"]
+
+        def cli_train(label, ck):
+            runs = []
+            for _ in range(2):
+                LAUNCHES.clear()
+                t0 = time.perf_counter()
+                history = train_cli.main(argv + ["--checkpoint_dir", str(ck)])
+                torch.cuda.synchronize()
+                runs.append([{k: h[k] for k in ("epoch", "train_loss", "val_loss")}
+                             for h in history])
+                total.update({k: v for k, v in LAUNCHES.items() if k == "attention.bf16"})
+                print(f"[13] cli.train {label}, 1 epoch into {ck.name}/: "
+                      f"{time.perf_counter() - t0:.3f} s wall; history {runs[-1]}; launches "
+                      f"{dict(sorted((k, v) for k, v in LAUNCHES.items() if v))}", flush=True)
+            files = sorted(str(p.relative_to(ck)) for p in ck.rglob("*") if p.is_file())
+            best = json.loads((ck / "best.json").read_text())
+            return runs, files, best
+
+        plain_cli = cli_train("without a process group", tmp / "ck_plain")
+
+        # the one-rank group, as a launcher starts it
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+        torch.cuda.set_device(multihost.local_device("cuda"))
+        dist.init_process_group("nccl", world_size=1, rank=0)
+        try:
+            mesh = create_mesh(data=1, fsdp=1)
+            print(f"[13] process group: backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}, rank {dist.get_rank()} (env RANK=0 WORLD_SIZE=1 "
+                  f"LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT={port}); mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}",
+                  flush=True)
+
+            # 3 train steps with and without the mesh, the same state and draws
+            base_sd = load_adm_checkpoint(str(ckpt), cfg)
+            model = InpaintingUNet(cfg)
+            model.load_state_dict(base_sd, strict=True)
+            model = model.to("cuda")
+            sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
+            loader, _ = create_inpainting_dataloaders(train_dir, val_dir, mask_root,
+                                                      batch_size=BATCH, img_size=size, seed=0)
+            batches = list(loader)
+
+            def reset():
+                with torch.no_grad():
+                    for name, p in model.named_parameters():
+                        p.copy_(base_sd[name])
+                return dict(model.named_parameters())
+
+            def train_run(m, masked=False, timed=PARALLEL_TIMED):
+                """PARALLEL_STEPS gated steps, their metrics and parameters,
+                then `timed` more, timed; `masked`: the biases frozen."""
+                params = reset()
+                frozen = {k: not k.endswith(".bias") for k in params} if masked else None
+                state = TrainState.create(model, params,
+                                          make_optimizer(make_lr_schedule("none", 5e-5, 1),
+                                                         param_mask=frozen))
+                step = make_train_step(sched, mesh=m)
+                gated = None
+                metrics, ev, host, launches = [], [], [], []
+                for i in range(PARALLEL_STEPS + timed):
+                    if i == PARALLEL_STEPS:
+                        gated = {k: p.detach().clone() for k, p in params.items()}
+                    batch = batches[i % len(batches)]
+                    batch = batch if m is None else shard_batch(batch, m)
+                    before = LAUNCHES["attention.bf16"]
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    start.record()
+                    state, mt = step(state, batch, 0)
+                    end.record()
+                    end.synchronize()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                    ev.append(start.elapsed_time(end))
+                    launches.append(LAUNCHES["attention.bf16"] - before)
+                    metrics.append({k: v.clone() for k, v in mt.items()})
+                total["attention.bf16"] += sum(launches)
+                n = PARALLEL_STEPS
+                if gated is None:
+                    gated = {k: p.detach().clone() for k, p in params.items()}
+                return metrics[:n], gated, launches[:n], ev[n:], host[n:]
+
+            # timed in the order plain, mesh, plain again
+            plain = train_run(None)
+            meshed = train_run(mesh)
+            control = train_run(None)
+
+            def same_run(a, b):
+                return (all(torch.equal(x[k], y[k]) for x, y in zip(a[0], b[0]) for k in x)
+                        and all(torch.equal(a[1][k], b[1][k]) for k in a[1]))
+
+            eq, eq_control = same_run(meshed, plain), same_run(control, plain)
+            ms = {lab: (float(np.mean(ev)), float(np.mean(host)))
+                  for lab, ev, host in (("mesh", meshed[3], meshed[4]),
+                                        ("no mesh", plain[3] + control[3], plain[4] + control[4]))}
+            print(f"[13] {PARALLEL_STEPS} train steps B={BATCH} at {size}^2 under the mesh: "
+                  f"losses {[round(float(x['loss']), 6) for x in meshed[0]]}, grad_norms "
+                  f"{[round(float(x['grad_norm']), 6) for x in meshed[0]]}; metrics and all "
+                  f"{len(meshed[1])} parameters bit-equal to the steps without the mesh: {eq} "
+                  f"(two runs without it bit-equal: {eq_control}); attention launches per "
+                  f"step {meshed[2]} / {plain[2]}; ms per step by CUDA events / host clock over "
+                  f"{PARALLEL_TIMED} more steps of each run (plain, mesh, plain again): mesh "
+                  f"{ms['mesh'][0]:.3f} / {ms['mesh'][1]:.3f} "
+                  f"({', '.join(f'{x:.1f}' for x in meshed[3])}), no mesh "
+                  f"{ms['no mesh'][0]:.3f} / {ms['no mesh'][1]:.3f} "
+                  f"({', '.join(f'{x:.1f}' for x in plain[3] + control[3])}) (one rank: the "
+                  f"collectives' own cost, not a scaling figure); {smi}", flush=True)
+            check(eq, "[13] the meshed train steps differ from the unmeshed ones")
+            check(meshed[2] == plain[2] == [n_attn] * PARALLEL_STEPS,
+                  f"[13] train step launches {meshed[2]} / {plain[2]}, not {n_attn} a forward")
+            held.append(f"{PARALLEL_STEPS} train steps (bits)")
+            del meshed, plain, control
+
+            # the same with the biases frozen by a param_mask: the clip's norm
+            # is the trainable gradients' under the mesh too
+            plain, meshed = (train_run(m, masked=True, timed=0) for m in (None, mesh))
+            eq = same_run(meshed, plain)
+            kept = all(torch.equal(p, base_sd[k].to("cuda")) for k, p in meshed[1].items()
+                       if k.endswith(".bias"))
+            print(f"[13] {PARALLEL_STEPS} train steps with the biases frozen (param_mask) "
+                  f"under the mesh: grad_norms "
+                  f"{[round(float(x['grad_norm']), 6) for x in meshed[0]]}; metrics and "
+                  f"parameters bit-equal to the steps without the mesh: {eq}; the frozen "
+                  f"biases unchanged: {kept}; attention launches per step {meshed[2]} / "
+                  f"{plain[2]}", flush=True)
+            check(eq and kept, "[13] the masked meshed train steps differ from the unmeshed")
+            check(meshed[2] == plain[2] == [n_attn] * PARALLEL_STEPS,
+                  f"[13] masked train step launches {meshed[2]} / {plain[2]}")
+            held.append(f"{PARALLEL_STEPS} masked train steps (bits)")
+            del meshed, plain
+
+            # one progressive and one consistency step under the mesh
+            teacher = InpaintingUNet(cfg)
+            teacher.load_state_dict(base_sd, strict=True)
+            teacher = teacher.to("cuda").requires_grad_(False)
+            makers = {"progressive": lambda m: make_distill_step(
+                          sched, unet_apply, unet_apply, teacher_steps=4, mesh=m),
+                      "consistency": lambda m: make_consistency_step(
+                          sched, unet_apply, unet_apply, grid_size=40, mesh=m)}
+            for kind, make in makers.items():
+                res = []
+                for m in (None, mesh):
+                    params = reset()
+                    state = TrainState.create(
+                        model, params, make_optimizer(make_lr_schedule("none", 1e-4, 1),
+                                                      weight_decay=0.0),
+                        ema_params=None if kind == "progressive" else init_ema(params))
+                    batch = batches[0] if m is None else shard_batch(batches[0], m)
+                    before = LAUNCHES["attention.bf16"]
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    state, metrics = make(m)(state, teacher, batch, 0)
+                    end.record()
+                    end.synchronize()
+                    n = LAUNCHES["attention.bf16"] - before
+                    total["attention.bf16"] += n
+                    tensors = {k: p.detach().clone() for k, p in params.items()}
+                    if state.ema_params is not None:
+                        tensors.update({f"ema.{k}": v.clone() for k, v in state.ema_params.items()})
+                    res.append((metrics, tensors, n, start.elapsed_time(end)))
+                    del state
+                (m0, t0_, n0, ms0), (m1, t1_, n1, ms1) = res
+                eq = (all(torch.equal(m0[k], m1[k]) for k in m0)
+                      and all(torch.equal(t0_[k], t1_[k]) for k in t0_))
+                print(f"[13] one {kind} step B={BATCH} under the mesh: loss "
+                      f"{float(m1['loss']):.6f}, grad_norm {float(m1['grad_norm']):.6f}; metrics "
+                      f"and {len(t1_)} tensors bit-equal to the step without it: {eq}; "
+                      f"launches {n1} / {n0}; {ms1:.3f} / {ms0:.3f} ms (CUDA events, one step "
+                      f"each, the unmeshed first); {smi}", flush=True)
+                check(eq, f"[13] the meshed {kind} step differs from the unmeshed one")
+                check(n0 == n1 == n_attn * DISTILL_FORWARDS[kind],
+                      f"[13] {kind} launches {n1} / {n0}")
+                held.append(f"a {kind} step (bits)")
+            moved = [k for k, p in teacher.named_parameters()
+                     if not torch.equal(p, base_sd[k].to("cuda"))]
+            check(not moved, f"[13] the teacher moved: {moved[:5]}")
+            del model, teacher, res
+            torch.cuda.empty_cache()
+
+            # ddim-100 through InpaintingPipeline(mesh=), against phase 3's call
+            config = PipelineConfig()
+            pmodel, psched = create_model_and_schedule(config, checkpoint=str(ckpt),
+                                                       device="cuda")
+            pipe = InpaintingPipeline(pmodel, psched, config, mesh=mesh)
+            gt, mask = main_inputs(torch, size)
+            n_steps = len(_ddim_tables(pipe.sched, config.sampler)["t"])
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = pipe.inpaint(gt, mask, 0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(sorted((k, v) for k, v in LAUNCHES.items() if v))
+            total["attention.bf16"] += LAUNCHES["attention.bf16"]
+            ref, ref_s = refs["ddim-100"]
+            eq = torch.equal(out.cpu(), ref)
+            print(f"[13] ddim-100 through InpaintingPipeline(mesh=) B={BATCH}: {secs:.4f} s per "
+                  f"call (phase 3 without the mesh {ref_s:.4f} s); bit-equal to phase 3's "
+                  f"output: {eq} (digest {output_digest(out)}); launches {launches}; {smi}",
+                  flush=True)
+            check(eq, "[13] the meshed pipeline's ddim-100 differs from phase 3's")
+            check(launches.get("attention.bf16") == n_attn * n_steps,
+                  f"[13] meshed ddim-100 launches {launches}, not {n_attn} x {n_steps}")
+            held.append(f"ddim-100 (bits, {n_attn * n_steps} launches)")
+            del pipe, pmodel
+            torch.cuda.empty_cache()
+
+            group_cli = cli_train("under the one-rank group", tmp / "ck_group")
+        finally:
+            dist.destroy_process_group()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            torch.backends.cudnn.deterministic = deterministic
+
+        (runs_p, files_p, best_p), (runs_g, files_g, best_g) = plain_cli, group_cli
+        states = [torch.load(ck / "steps" / "0" / "state.pt", map_location="cpu",
+                             weights_only=True) for ck in (tmp / "ck_plain", tmp / "ck_group")]
+        same_state = all(torch.equal(states[0][sec][k], states[1][sec][k])
+                         for sec in ("params",) for k in states[0][sec])
+        same_state &= all(torch.equal(states[0]["opt_state"][m][k], states[1]["opt_state"][m][k])
+                          for m in ("mu", "nu") for k in states[0]["opt_state"][m])
+        del states
+        print(f"[13] cli.train under the group against without it: histories equal "
+              f"{runs_g == runs_p}, files equal {files_g == files_p} ({files_g}), best.json "
+              f"equal {best_g == best_p}, steps/0/state.pt params and moments bit-equal "
+              f"{same_state}; both datasets' masks and normalize/compose native (maskgen), "
+              f"their decode {'native (imgload)' if native_loader else 'PIL (no imgload here)'}",
+              flush=True)
+        check(runs_g == runs_p and files_g == files_p and best_g == best_p and same_state,
+              "[13] cli.train under the one-rank group differs from the run without it")
+        check(files_g.count("steps/0/state.pt") == 1 and "best/state.pt" in files_g
+              and not any("overwrite_backup" in f for f in files_g),
+              f"[13] checkpoint files {files_g}")
+        held.append("cli.train x2 (history, files, best.json, state bits)")
+    print(f"[13] held: {'; '.join(held)}; phase wall {time.perf_counter() - t_phase:.1f} s; "
+          f"bf16 attention launches {total['attention.bf16']}; {smi}", flush=True)
+    return total["attention.bf16"]
+
+
 def main():
     import torch
 
@@ -3235,9 +3655,14 @@ def main():
     # default TF32 switches, as phase 10 trains
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
     distill_launches = phase_distill(torch, np, ckpt, n_attn, smi)
+
+    # 13. the native data helpers, then a one-rank NCCL group and its mesh,
+    # both TF32 switches off
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    parallel_launches = phase_parallel(torch, np, ckpt, n_attn, refs, smi)
     ckpt_dir.cleanup()
 
-    # 13. the record
+    # 14. the record
     # launches: attention_bf16 in phase 3's DDIM-100 call, phase 9's
     # kernel-path calls (the new methods, guidance, the trajectory, the
     # CLIs), phase 10's (cli.train's train and validation forwards, the
@@ -3245,14 +3670,17 @@ def main():
     # (program replays and their recording runs, the servers, the CLI
     # runs, the forwards) and phase 12's (cli.distill's steps, the CLIs on
     # the students and the export, the kernel-path steps and the target
-    # network's forwards), attention_f32 in
+    # network's forwards) and phase 13's (the meshed and unmeshed train,
+    # distill and ddim-100 calls, cli.train with and without the group),
+    # attention_f32 in
     # phase 8's `cli.evaluate --dtype f32` run (its user path; phase 4's
     # float32 forward launched it too), quantize in phase 5's absmax CLI run
     kernels = [dict(name="attention_bf16", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
                     replaces="fidm_tpu/ops/attention.py:46",
                     launches=launches["attention.bf16"] + sampling_launches
-                    + training_launches + program_launches + distill_launches,
+                    + training_launches + program_launches + distill_launches
+                    + parallel_launches,
                     **attn_rows[torch.bfloat16]),
                dict(name="attention_f32", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",

@@ -32,8 +32,11 @@ The flags, defaults, refusals, report and metadata are the JAX CLI's, plus
 `.pt` or a training checkpoint directory of `cli.train` (best if present,
 else latest; the EMA under `--use_ema`; a LoRA adapter merged onto its
 `lora_base/`); without it, consistency-training starts from torch's
-initialisation seeded with `--seed`. `--fsdp` above 1 is refused, as in
-`cli.train`. The teacher is a frozen copy of the weights; each progressive
+initialisation seeded with `--seed`. Under a launcher (as `cli.train`: torchrun,
+or RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT) every rank distills its
+rows of each global batch over `auto_mesh(--batch_size, --fsdp)`, the teacher
+and the student sharded over `--fsdp` ranks; in one process `--fsdp` above 1
+raises. The teacher is a frozen copy of the weights; each progressive
 round's trained student becomes the next round's teacher. The draws come
 from `TrainDraws(--seed)`, each progressive round's folded with its teacher
 step count so that rounds do not replay round 1's noise, not the JAX CLI's
@@ -42,6 +45,7 @@ threefry key.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -110,7 +114,8 @@ def parse_args(argv=None):
     p.add_argument("--use_ema", action="store_true",
                    help="distill from the teacher's EMA parameters")
     p.add_argument("--fsdp", type=int, default=1,
-                   help="fsdp axis size (1 = one device; above 1 not ported yet)")
+                   help="fsdp axis size: ranks that share one copy of the teacher's and "
+                        "the student's large tensors (ZeRO-3)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="device to distill on (default cuda; raises when no GPU "
@@ -151,10 +156,6 @@ def _check_args(args) -> None:
         raise SystemExit(
             f"--checkpoint is required for --mode {args.mode} (only "
             "consistency-training can start from random init)")
-    if args.fsdp > 1:
-        raise NotImplementedError(
-            "--fsdp > 1 is not ported yet: sharded (FSDP) distillation comes with the "
-            "port's parallel slice; the port distills on one device")
 
 
 def _initial_weights(args, cfg):
@@ -212,14 +213,14 @@ def _optimizer(args):
         weight_decay=0.0, grad_clip=args.grad_clip)
 
 
-def _run(step, state, teacher, stream, draws, steps, label):
+def _run(step, state, teacher, stream, draws, steps, label, say=print):
     """`steps` updates; the loss is read (a host sync) only at the JAX CLI's
     print points. Returns (state, the last metrics)."""
     last = {}
     for i in range(steps):
         state, last = step(state, teacher, next(stream), draws)
         if i % max(1, steps // 10) == 0:
-            print(f"[{label}] step {i} loss {float(last['loss']):.5f}", flush=True)
+            say(f"[{label}] step {i} loss {float(last['loss']):.5f}", flush=True)
     return state, last
 
 
@@ -230,13 +231,20 @@ def main(argv=None):
     from ..distill import make_consistency_step, make_distill_step
     from ..distill.progressive import unet_apply
     from ..models import ffhq256_config
+    from ..parallel import auto_mesh, multihost, shard_params
+    from ..parallel.collectives import ShardedModule
     from ..training import CheckpointManager, TrainDraws, TrainState, init_ema
 
     args = parse_args(argv)
     _check_args(args)
-    device = resolve_device(args.device)
+    if not multihost.initialize(device=args.device) and args.fsdp > 1:
+        raise ValueError(f"--fsdp {args.fsdp} needs a process group of a multiple of "
+                         f"{args.fsdp} ranks (torchrun --nproc_per_node ...)")
+    primary = multihost.is_primary()
+    say = print if primary else (lambda *a, **k: None)
+    device = resolve_device(multihost.local_device(args.device))
     if args.mask_dir is None and args.mask_mode != "procedural":
-        print("no --mask_dir: switching to procedural mask generation")
+        say("no --mask_dir: switching to procedural mask generation")
         args.mask_mode = "procedural"
 
     cfg = ffhq256_config(
@@ -249,12 +257,21 @@ def main(argv=None):
     )
     sched = DiffusionSchedule.create(args.schedule, args.diffusion_steps, device=device)
     weights = _initial_weights(args, cfg)
-    print(f"device: {device}")
+    say(f"device: {device}")
+    mesh = None
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        # as the JAX CLI: the teacher (and the student made from it) sharded
+        # under --fsdp, the batch over every rank
+        mesh = auto_mesh(args.batch_size, fsdp=args.fsdp)
+        say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+            f"{mesh.size()} device(s)")
+    fsdp = mesh is not None and args.fsdp > 1
 
     ds = InpaintingDataset(args.train_dir, args.mask_dir, "train",
                            args.image_size, args.mask_mode, args.seed)
+    # each rank yields its rows of every global batch
     loader = DataLoader(ds, args.batch_size, shuffle=True, drop_last=True,
-                        seed=args.seed)
+                        seed=args.seed, process_local=mesh is not None)
     if len(loader) == 0:
         raise SystemExit("dataset smaller than one batch")
 
@@ -264,27 +281,30 @@ def main(argv=None):
     stream = _batches(loader, device)
     draws = TrainDraws(args.seed, device)
     student = _module(cfg, weights, device, frozen=False)
+    params, specs = (shard_params(student, mesh, use_fsdp=fsdp) if mesh is not None
+                     else (dict(student.named_parameters()), None))
+
+    def frozen_teacher():
+        teacher = _module(cfg, weights, device, frozen=True)
+        return ShardedModule(teacher, mesh) if fsdp else teacher
 
     if args.mode in ("consistency", "consistency-training"):
         ct = args.mode == "consistency-training"
-        teacher = None if ct else _module(cfg, weights, device, frozen=True)
-        params = dict(student.named_parameters())
+        teacher = None if ct else frozen_teacher()
         cstate = TrainState.create(student, params, _optimizer(args),
-                                   ema_params=init_ema(params))
+                                   ema_params=init_ema(params), specs=specs)
         cstep = make_consistency_step(
             sched, None if ct else unet_apply, unet_apply, grid_size=args.grid_size,
             teacher_mean_type=teacher_mt, student_mean_type=student_mt,
-            ema_decay=args.ema_decay,
+            ema_decay=args.ema_decay, mesh=mesh,
         )
         cstate, last = _run(cstep, cstate, teacher, stream, draws, args.steps_per_round,
-                            args.mode)
+                            args.mode, say)
         sdir = os.path.join(args.out, "consistency")
-        mgr = CheckpointManager(sdir, keep_last_n=1)
+        mgr = CheckpointManager(sdir, keep_last_n=1, mesh=mesh)
         # the usable student is the EMA target network: saved AS the params
         # so that cli.evaluate --preset consistency-K works unflagged
-        tree = cstate.state_dict()
-        tree["params"] = tree["ema_params"]
-        mgr.save(0, tree, metadata={
+        mgr.save(0, dataclasses.replace(cstate, params=cstate.ema_params), metadata={
             "mode": args.mode,
             "mean_type": args.student_mean_type,
             "schedule": args.schedule,
@@ -294,33 +314,34 @@ def main(argv=None):
         mgr.close()
         report = {"mode": args.mode, "final_loss": float(last["loss"]),
                   "checkpoint": sdir, "out": args.out}
-        print(json.dumps(report))
+        say(json.dumps(report))
         return report
 
     report = {"rounds": [], "out": args.out}
-    teacher = _module(cfg, weights, device, frozen=True)
+    teacher = frozen_teacher()
     cur_steps, cur_mt = args.teacher_steps, teacher_mt
     while cur_steps > args.final_steps:
         if report["rounds"]:
-            # the trained student is the next round's frozen teacher
+            # the trained student is the next round's frozen teacher (shard
+            # for shard under --fsdp: both have the same specs)
             with torch.no_grad():
-                for t, s in zip(teacher.parameters(), student.parameters()):
-                    t.copy_(s)
-        dstate = TrainState.create(student, dict(student.named_parameters()),
-                                   _optimizer(args))
+                dst = teacher.params if fsdp else dict(teacher.named_parameters())
+                for k, t in dst.items():
+                    t.copy_(params[k])
+        dstate = TrainState.create(student, params, _optimizer(args), specs=specs)
         dstep = make_distill_step(
             sched, unet_apply, unet_apply, teacher_steps=cur_steps,
-            teacher_mean_type=cur_mt, student_mean_type=student_mt,
+            teacher_mean_type=cur_mt, student_mean_type=student_mt, mesh=mesh,
         )
         # the round folded into the draws: the step folds in its update
         # count, which restarts at 0 each round
         dstate, last = _run(dstep, dstate, teacher, stream, draws.fold(cur_steps),
-                            args.steps_per_round, f"{cur_steps}->{cur_steps // 2}")
+                            args.steps_per_round, f"{cur_steps}->{cur_steps // 2}", say)
         cur_mt = student_mt
         cur_steps //= 2
         grid = student_grid(args.diffusion_steps, cur_steps)
         sdir = os.path.join(args.out, f"student_{cur_steps}")
-        mgr = CheckpointManager(sdir, keep_last_n=1)
+        mgr = CheckpointManager(sdir, keep_last_n=1, mesh=mesh)
         mgr.save(0, dstate, metadata={
             "student_steps": cur_steps,
             "mean_type": args.student_mean_type,
@@ -329,18 +350,19 @@ def main(argv=None):
             "timesteps_grid": grid,
         })
         mgr.close()
-        with open(os.path.join(sdir, "grid.json"), "w") as f:
-            json.dump({"grid": grid,
-                       "mean_type": args.student_mean_type}, f)
+        if primary:
+            with open(os.path.join(sdir, "grid.json"), "w") as f:
+                json.dump({"grid": grid,
+                           "mean_type": args.student_mean_type}, f)
         report["rounds"].append({
             "student_steps": cur_steps,
             "final_loss": float(last["loss"]),
             "checkpoint": sdir,
             "grid": grid,
         })
-        print(f"saved {sdir} (grid {grid})", flush=True)
+        say(f"saved {sdir} (grid {grid})", flush=True)
 
-    print(json.dumps(report))
+    say(json.dumps(report))
     return report
 
 

@@ -3,14 +3,22 @@
     python -m fidm_tpu_torch.cli.train --train_dir ... --val_dir ... \
         --mask_dir ... --pretrained ffhq.pt
 
-Fine-tunes the inpainting UNet on one GPU: an ADM `.pt` as the base (a
-3-channel first conv is widened to 9), optional LoRA factors, a warmup-cosine
-or step learning rate, the global-norm clip, validation, latest / best /
-rotating checkpoints (`training/checkpoint.py`'s format), early stopping,
+Fine-tunes the inpainting UNet: an ADM `.pt` as the base (a 3-channel first
+conv is widened to 9), optional LoRA factors, a warmup-cosine or step
+learning rate, the global-norm clip, validation, latest / best / rotating
+checkpoints (`training/checkpoint.py`'s format), early stopping,
 `--resume latest|best|<step>`, and `history.json`. The flags and defaults
 are the JAX CLI's, plus `--device` (default cuda; raises without a GPU).
-`--fsdp` above 1 is refused: sharded training waits for the port's parallel
-slice. The step's draws come from `TrainDraws(--seed)` (torch generators
+
+Under a launcher (`torchrun --nproc_per_node N -m fidm_tpu_torch.cli.train
+...`, or RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT set by hand) the CLI
+joins the process group first (`parallel.multihost.initialize`: NCCL on
+cuda, gloo with `--device cpu`), builds `auto_mesh(--batch_size, --fsdp)`
+over the ranks and trains data-parallel, with the large tensors sharded over
+`--fsdp` ranks (ZeRO-3); each rank feeds its rows of every global batch, and
+only the primary prints, writes `history.json` and moves checkpoint
+directories. In one process there is no mesh, and `--fsdp` above 1 raises.
+The step's draws come from `TrainDraws(--seed)` (torch generators
 seeded through numpy's SeedSequence), not the JAX CLI's threefry key, and a
 model without `--pretrained` starts from torch's initialisation seeded with
 `--seed`.
@@ -84,7 +92,8 @@ def parse_args(argv=None):
                    help=">0 trains only LoRA factors on attention layers")
     p.add_argument("--lora_alpha", type=float, default=16.0)
     p.add_argument("--fsdp", type=int, default=1,
-                   help="fsdp axis size (1 = one device; above 1 not ported yet)")
+                   help="fsdp axis size: ranks that share one copy of the large "
+                        "tensors (ZeRO-3); needs that many processes per data replica")
     p.add_argument("--ema_decay", type=float, default=0.0,
                    help=">0 maintains an EMA of the params (e.g. 0.9999)")
     p.add_argument("--accum_steps", type=int, default=1,
@@ -188,14 +197,23 @@ def main(argv=None):
         make_train_step,
     )
 
+    from ..parallel import auto_mesh, multihost, shard_params
+    from ..parallel.collectives import broadcast_object
+
     args = parse_args(argv)
-    if args.fsdp > 1:
-        raise NotImplementedError(
-            "--fsdp > 1 is not ported yet: sharded (FSDP) training comes with the "
-            "port's parallel slice; the port trains on one device")
-    device = resolve_device(args.device)
+    # a launched job joins its process group before anything touches the
+    # device; in a plain shell this is a no-op
+    if multihost.initialize(device=args.device):
+        print(f"multihost: process {multihost.process_index()}/"
+              f"{multihost.process_count()} connected")
+    elif args.fsdp > 1:
+        raise ValueError(f"--fsdp {args.fsdp} needs a process group of a multiple of "
+                         f"{args.fsdp} ranks (torchrun --nproc_per_node ...)")
+    primary = multihost.is_primary()
+    say = print if primary else (lambda *a, **k: None)
+    device = resolve_device(multihost.local_device(args.device))
     if args.mask_dir is None and args.mask_mode != "procedural":
-        print("no --mask_dir: switching to procedural mask generation")
+        say("no --mask_dir: switching to procedural mask generation")
         args.mask_mode = "procedural"
 
     train_loader, val_loader = create_inpainting_dataloaders(
@@ -220,10 +238,17 @@ def main(argv=None):
         from ..models.weights import load_adm_checkpoint
 
         model.load_state_dict(load_adm_checkpoint(args.pretrained, cfg), strict=True)
-        print(f"loaded pretrained weights from {args.pretrained}")
+        say(f"loaded pretrained weights from {args.pretrained}")
     model = model.to(device)
     sched = DiffusionSchedule.create(args.schedule, args.diffusion_steps, device=device)
-    print(f"device: {device}")
+    say(f"device: {device}")
+    mesh = None
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        mesh = auto_mesh(args.batch_size, fsdp=args.fsdp)
+        say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+            f"{mesh.size()} device(s)")
+    else:
+        say("mesh: none (one process)")
 
     lr = make_lr_schedule(args.scheduler, args.lr, args.num_epochs * steps_per_epoch,
                           args.warmup_epochs * steps_per_epoch, args.min_lr_ratio)
@@ -239,17 +264,24 @@ def main(argv=None):
         for t in train_params.values():
             t.requires_grad_(True)
         param_transform = lambda p: lora_weights(model, cfg, p)  # noqa: E731
-        print(f"LoRA: training {lora_param_count(train_params):,} params "
-              f"(rank {args.lora_rank})")
+        say(f"LoRA: training {lora_param_count(train_params):,} params "
+            f"(rank {args.lora_rank})")
         # training checkpoints hold only the adapter, so evaluation merges it
         # onto this base; a resumed run keeps the base its adapters belong
-        # to, a fresh run rewrites it atomically
-        if not (args.resume and os.path.isdir(os.path.join(args.checkpoint_dir, "lora_base"))):
+        # to, a fresh run rewrites it atomically (the primary's view and
+        # write)
+        keep = broadcast_object(bool(args.resume) and os.path.isdir(
+            os.path.join(args.checkpoint_dir, "lora_base")) if primary else None)
+        if not keep and primary:
             save_lora_base(args.checkpoint_dir, model.state_dict())
+        multihost.barrier("fidm-lora-base")
     else:
         train_params = dict(model.named_parameters())
+    specs = None
+    if mesh is not None:
+        train_params, specs = shard_params(train_params, mesh, use_fsdp=args.fsdp > 1)
 
-    state = TrainState.create(model, train_params, tx)
+    state = TrainState.create(model, train_params, tx, specs=specs)
     if args.ema_decay > 0:
         from ..training import init_ema
 
@@ -261,17 +293,17 @@ def main(argv=None):
                    loss_weight=args.loss_weight, loss_weight_gamma=args.snr_gamma,
                    mean_type=mean_type, param_transform=param_transform)
     train_step = make_train_step(sched, ema_decay=args.ema_decay if args.ema_decay > 0 else None,
-                                 accum_steps=args.accum_steps, **loss_kw)
-    eval_step = make_eval_step(sched, **loss_kw)
+                                 accum_steps=args.accum_steps, mesh=mesh, **loss_kw)
+    eval_step = make_eval_step(sched, mesh=mesh, **loss_kw)
 
     ckpt = CheckpointManager(args.checkpoint_dir, keep_last_n=args.keep_last_n,
-                             async_save=args.async_checkpoint)
+                             async_save=args.async_checkpoint, mesh=mesh)
     start_epoch = 0
     if args.resume:
         state, meta = ckpt.restore(args.resume, state)
         if meta and "epoch" in meta:
             start_epoch = int(meta["epoch"]) + 1
-        print(f"resumed from {args.resume} at epoch {start_epoch}")
+        say(f"resumed from {args.resume} at epoch {start_epoch}")
 
     meta = {
         "schedule": args.schedule, "diffusion_steps": args.diffusion_steps,
@@ -283,10 +315,11 @@ def main(argv=None):
         state, train_step, eval_step, train_loader, val_loader, args.seed,
         FitConfig(num_epochs=args.num_epochs,
                   early_stopping_patience=args.early_stopping_patience,
-                  threaded_loader=args.threaded_loader),
-        checkpoint_manager=ckpt, start_epoch=start_epoch, metadata=meta)
-    with open(os.path.join(args.checkpoint_dir, "history.json"), "w") as f:
-        json.dump(history, f, indent=2)
+                  threaded_loader=args.threaded_loader, log_fn=say),
+        checkpoint_manager=ckpt, mesh=mesh, start_epoch=start_epoch, metadata=meta)
+    if primary:
+        with open(os.path.join(args.checkpoint_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=2)
     ckpt.close()
     return history
 

@@ -13,9 +13,11 @@ Counterpart of the inference part of `fidm_tpu/data/dataset.py`:
   loader that drops a ragged last batch and a sequential val loader.
 - `create_inference_dataloader`: the test loader with ordered masks.
 
-Image files decode with PIL, imported when a file is read; normalize and
-compose are numpy (what `fidm_tpu` computes when its native library is not
-built).
+Image files decode through the native loader (`native/imgload.cpp`, bit-equal
+to PIL) and normalize and compose in the fused C++ helper
+(`native/maskgen.cpp`), as `fidm_tpu`'s default does, so items are bit-equal
+to its items; where a library is not built, or `FIDM_TPU_NATIVE=0`, PIL and
+numpy do the same work (bit-equal to `fidm_tpu` there too).
 
 Every item is `{image, masked_image, mask, image_path, mask_path}`,
 channel-last.
@@ -53,7 +55,13 @@ def list_images(directory) -> List[Path]:
 
 
 def decode_rgb_u8(path, size: int) -> np.ndarray:
-    """uint8 [size, size, 3]: PIL decode, RGB, bilinear resize."""
+    """uint8 [size, size, 3]: RGB, bilinear resize, through the native
+    decoder (bit-equal to PIL), or PIL for an item it cannot decode."""
+    from ..native.imgload import decode_resize
+
+    u8 = decode_resize(path, size, "RGB")
+    if u8 is not None:
+        return u8
     from PIL import Image
 
     img = Image.open(path).convert("RGB").resize((size, size), Image.BILINEAR)
@@ -67,9 +75,28 @@ def load_image(path, size: int) -> np.ndarray:
 
 
 def _normalize_compose(u8: np.ndarray, mask: np.ndarray):
-    """uint8 HWC -> ([-1,1] image, masked_image)."""
-    image = u8.astype(np.float32) / 255.0 * 2.0 - 1.0
-    return image, image * (1.0 - mask)
+    """uint8 HWC -> ([-1,1] image, masked_image), in the fused C++ helper
+    when it is built (u8 * (2/255) - 1, which can differ from numpy's
+    u8 / 255 * 2 - 1 in the last bit), in numpy otherwise."""
+    from ..native.build import load as load_native
+
+    lib = load_native()
+    if lib is None:
+        image = u8.astype(np.float32) / 255.0 * 2.0 - 1.0
+        return image, image * (1.0 - mask)
+
+    import ctypes
+
+    h, w = u8.shape[:2]
+    u8 = np.ascontiguousarray(u8)
+    m = np.ascontiguousarray(mask[..., 0], np.float32)
+    image = np.empty((h, w, 3), np.float32)
+    masked = np.empty((h, w, 3), np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.fidm_normalize_compose(u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                               m.ctypes.data_as(f32p), image.ctypes.data_as(f32p),
+                               masked.ctypes.data_as(f32p), h, w)
+    return image, masked
 
 
 class InpaintingDataset:
@@ -185,9 +212,15 @@ class DataLoader:
     """Minimal batcher: shuffle, drop_last, stacked numpy dict batches.
 
     Every array-valued item key is stacked; numeric scalars become 1-D
-    arrays; anything else (paths) stays a list. `process_local` is the JAX
-    loader's switch for multi-process feeding; the port trains in one
-    process, where it changes nothing."""
+    arrays; anything else (paths) stays a list.
+
+    `process_local=True` (multi-process training; `training.loop.fit` sets
+    it when the process group has more than one rank): every rank computes
+    the same global epoch order (seed + epoch) and yields only its rows of
+    each global batch (`parallel.multihost.host_local_slice`):
+    `batch_size` stays the global batch size, each rank yields
+    batch_size / world rows per step, and a ragged tail is dropped. In one
+    process it changes nothing."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
@@ -214,9 +247,15 @@ class DataLoader:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         self.epoch += 1
         step = self.batch_size
+        if self.process_local:
+            from ..parallel.multihost import host_local_slice, process_count
+
+            if process_count() > 1:
+                idx = host_local_slice(idx, self.batch_size)
+                step = self.batch_size // process_count()
         for start in range(0, len(idx), step):
             chunk = idx[start : start + step]
-            if self.drop_last and len(chunk) < step:
+            if (self.drop_last or step != self.batch_size) and len(chunk) < step:
                 break
             items = [self.dataset[int(i)] for i in chunk]
             batch = {}
@@ -236,12 +275,17 @@ def create_inpainting_dataloaders(
     mask_mode="serial", seed=42,
 ):
     """Train/val loader pair: a shuffled train loader that drops a ragged
-    last batch, and a sequential val loader that keeps it (one device)."""
+    last batch, and a sequential val loader that keeps it in one process and
+    drops it when the process group has more than one rank (a meshed eval
+    step needs the batch to divide over the ranks)."""
+    from ..parallel.multihost import process_count
+
     train_ds = InpaintingDataset(train_dir, mask_dir, "train", img_size, mask_mode, seed)
     val_ds = InpaintingDataset(val_dir, mask_dir, "val", img_size, mask_mode, seed + 57)
+    val_drop = process_count() > 1 and len(val_ds) % batch_size != 0
     return (
         DataLoader(train_ds, batch_size, shuffle=True, drop_last=True, seed=seed),
-        DataLoader(val_ds, batch_size, shuffle=False, drop_last=False),
+        DataLoader(val_ds, batch_size, shuffle=False, drop_last=val_drop),
     )
 
 

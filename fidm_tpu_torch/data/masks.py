@@ -4,17 +4,21 @@
 Counterpart of `fidm_tpu/data/masks.py`:
 
 - `random_mask`: procedural box / irregular-brush-stroke masks with a target
-  coverage range: the numpy stroke model, bit-equal to `fidm_tpu`'s
-  `random_mask(..., use_native=False)` for the same generator. The port has
-  no C++ host helpers.
+  coverage range. By default the C++ rasterizer (`native/maskgen.cpp`)
+  draws them from a seed taken from the generator, as `fidm_tpu`'s default
+  does, so they are bit-equal to its masks for the same generator; where
+  the library does not build (or `use_native=False`) the numpy stroke model
+  runs, bit-equal to `fidm_tpu`'s numpy path.
 - `load_mask`: file loading with the black (< 0.5) = 1 = inpaint, white = 0
-  = keep convention. Files decode with PIL, imported when a file is read.
+  = keep convention. Files decode through the native loader
+  (`native/imgload.cpp`, bit-equal to PIL), or with PIL where it is not
+  built.
 
 Masks are float32 [H, W, 1] (NHWC), 1 = hole.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -75,17 +79,44 @@ def random_brush_mask(rng: np.random.Generator, size: int,
     return mask[..., None]
 
 
+def _native_mask(kind: str, size: int, seed: int, coverage) -> Optional[np.ndarray]:
+    """The C++ rasterizer's mask (native/maskgen.cpp); None if it is not
+    built."""
+    from ..native.build import load
+
+    lib = load()
+    if lib is None:
+        return None
+    import ctypes
+
+    mask = np.zeros((size, size), np.float32)
+    fn = lib.fidm_brush_mask if kind == "brush" else lib.fidm_box_mask
+    fn(mask.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), size, ctypes.c_uint64(seed),
+       coverage[0], coverage[1])
+    return mask[..., None]
+
+
 def random_mask(rng: np.random.Generator, size: int,
                 coverage: Tuple[float, float] = (0.05, 0.60),
-                kind: str = "mixed") -> np.ndarray:
-    """Procedural mask: 'box' | 'brush' | 'mixed' (random choice)."""
+                kind: str = "mixed", use_native: bool = True) -> np.ndarray:
+    """Procedural mask: 'box' | 'brush' | 'mixed' (random choice).
+
+    With `use_native` the C++ rasterizer draws it (the same stroke model,
+    its own RNG stream seeded by `rng.integers(1, 2**63)`, drawn whether or
+    not the library is built, as in `fidm_tpu`); the numpy version
+    otherwise. An unknown kind raises ValueError on both paths (the JAX
+    package's native path draws a box for it)."""
+    if kind not in ("mixed", "box", "brush"):
+        raise ValueError(f"unknown mask kind: {kind}")
     if kind == "mixed":
         kind = "box" if rng.uniform() < 0.5 else "brush"
+    if use_native:
+        native = _native_mask(kind, size, int(rng.integers(1, 2**63)), coverage)
+        if native is not None:
+            return native
     if kind == "box":
         return random_box_mask(rng, size, coverage)
-    if kind == "brush":
-        return random_brush_mask(rng, size, coverage)
-    raise ValueError(f"unknown mask kind: {kind}")
+    return random_brush_mask(rng, size, coverage)
 
 
 def mask_from_array(gray: np.ndarray) -> np.ndarray:
@@ -96,9 +127,15 @@ def mask_from_array(gray: np.ndarray) -> np.ndarray:
 
 
 def load_mask(path: str, size: int) -> np.ndarray:
-    """Load a mask file (PIL: grayscale, bilinear resize to size x size) and
-    apply the black = inpaint inversion."""
-    from PIL import Image
+    """Load a mask file (grayscale, bilinear resize to size x size) and apply
+    the black = inpaint inversion. Decodes through the native loader
+    (bit-equal to PIL's convert("L") and BILINEAR resize), with PIL where
+    the loader is not built or cannot read the file."""
+    from ..native.imgload import decode_resize
 
-    m = np.asarray(Image.open(path).convert("L").resize((size, size), Image.BILINEAR))
+    m = decode_resize(path, size, "L")
+    if m is None:
+        from PIL import Image
+
+        m = np.asarray(Image.open(path).convert("L").resize((size, size), Image.BILINEAR))
     return mask_from_array(np.asarray(m, np.float32) / 255.0)

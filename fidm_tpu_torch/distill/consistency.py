@@ -20,6 +20,11 @@ x_hat comes from the data with the same noise draw, no teacher at all.
 The target network runs the student module at the EMA tensors through
 `torch.func.functional_call`, every parameter swapped (biases, GroupNorm
 scales and embeddings too), never at the live weights.
+
+Under a mesh the step is `progressive.make_distill_step`'s: this rank's
+rows, gradients and loss averaged over the ranks, a student of fsdp shards
+gathered for its forward (and its EMA for the target network), the teacher
+a module or a `parallel.collectives.ShardedModule`.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from torch import nn
 from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule
 from ..training.ema import update_ema
+from ..parallel.collectives import full_params, gathered, whole
+from ..training.train_state import _global_means
 from .progressive import _alpha_sigma, _on_device, _step_inputs, _update, _x0_from
 
 __all__ = [
@@ -99,6 +106,7 @@ def make_consistency_step(
     loss_metric: str = "huber",
     huber_c: Optional[float] = None,
     clip_denoised: bool = True,
+    mesh=None,
 ):
     """Build the consistency train step (distillation or training).
 
@@ -114,7 +122,8 @@ def make_consistency_step(
     Returns step(state, teacher, batch, draws) -> (state, metrics), as
     `progressive.make_distill_step`'s: the grid segment comes from
     `draws.timesteps(B, grid_size)`, the noise from `draws.noise(shape)`;
-    metrics {loss, grad_norm (before the clip)} as device tensors.
+    metrics {loss, grad_norm (before the clip)} as device tensors. `mesh`
+    as in `make_distill_step`.
     """
     bounds_host = consistency_grid(sched.num_timesteps, grid_size)
     cache: Dict = {}
@@ -144,7 +153,7 @@ def make_consistency_step(
             raise ValueError(
                 "consistency distillation needs a target network: create the "
                 "TrainState with ema_params=init_ema(<initial student params>)")
-        device, batch, draws, cond = _step_inputs(state, batch, draws)
+        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh)
         boundaries = _on_device(bounds_host, cache, device)
         x_start = batch["image"]
         B = x_start.shape[0]
@@ -163,18 +172,21 @@ def make_consistency_step(
                 # noise, no model evaluation
                 x_hat = gd.q_sample(sched, x_start, t1, noise)
             else:
-                x_hat = teacher_ddim_step(teacher, x_t, t0, t1, cond)
-            raw_tgt = _at_params(student_apply, state.model, state.ema_params,
-                                 x_hat, t1, *cond)
+                with whole(teacher) as teacher_module:
+                    x_hat = teacher_ddim_step(teacher_module, x_t, t0, t1, cond)
+            ema = full_params(state.ema_params, state.specs, mesh)
+            raw_tgt = _at_params(student_apply, state.model, ema, x_hat, t1, *cond)
+            del ema
             target = consistency_x0(sched, raw_tgt, x_hat, t1, student_mean_type,
                                     clip_denoised)
 
-        raw = student_apply(state.model, x_t, t0, *cond)
-        pred = consistency_x0(sched, raw, x_t, t0, student_mean_type, clip_denoised)
-        loss = distance(pred, target)
-        grad_norm = _update(state, loss)
+        with gathered(state.model, state.params, state.specs, mesh):
+            raw = student_apply(state.model, x_t, t0, *cond)
+            pred = consistency_x0(sched, raw, x_t, t0, student_mean_type, clip_denoised)
+            loss = distance(pred, target)
+            grad_norm = _update(state, loss, mesh)
         update_ema(state.ema_params, state.params, ema_decay)
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {**_global_means({"loss": loss.detach()}, mesh), "grad_norm": grad_norm}
 
     return step
 

@@ -17,6 +17,12 @@ The teacher and the student are separate modules. The JAX step passes one
 parameter tree as both and relies on not donating it; here the optimizer
 updates the student's parameters in place, so a shared module would move
 the teacher with every step.
+
+Under a mesh each rank takes its rows of the batch and of the global draws,
+and the gradients and the loss are averaged over the ranks, as in
+`training.make_train_step(mesh=)`; a student state of fsdp shards is
+gathered for its forward, and the teacher may be a
+`parallel.collectives.ShardedModule`, gathered for its two calls.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ import torch
 
 from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule
-from ..training.train_state import _as_draws, _device_batch, global_norm
+from ..parallel.collectives import gathered, whole
+from ..training.train_state import (_check_specs, _global_means, _mesh_inputs,
+                                    _reduce_and_apply)
 
 __all__ = ["distill_boundaries", "make_distill_step", "unet_apply"]
 
@@ -68,25 +76,25 @@ def _on_device(table: np.ndarray, cache: Dict, device) -> torch.Tensor:
     return cache[device]
 
 
-def _step_inputs(state, batch, draws):
+def _step_inputs(state, batch, draws, mesh=None):
     """The batch on the student's device, the step's draws (the update count
-    folded in) and the conditioning pair."""
-    device = next(iter(state.params.values())).device
-    batch = _device_batch(batch, device)
-    draws = _as_draws(draws, device).fold(state.step)
-    return device, batch, draws, (batch["masked_image"], batch["mask"])
+    folded in; this rank's rows under a mesh) and the conditioning pair."""
+    device, batch, draws = _mesh_inputs(state, batch, draws, mesh)
+    return device, batch, draws.fold(state.step), (batch["masked_image"], batch["mask"])
 
 
-def _update(state, loss) -> torch.Tensor:
-    """The gradients of `loss` for every trained tensor, one optimizer
-    update; returns their global norm before the clip."""
+def _update(state, loss, mesh=None) -> torch.Tensor:
+    """The gradients of `loss` for every trained tensor (the gathered
+    module's for sharded ones; call it inside `gathered`), averaged over the
+    ranks under a mesh, and one optimizer update; returns their global norm
+    before the clip."""
     names = list(state.params)
-    leaves = [state.params[k] for k in names]
+    sharded = set(_check_specs(state, mesh))
+    model_params = dict(state.model.named_parameters()) if sharded else {}
+    leaves = [model_params[k] if k in sharded else state.params[k] for k in names]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    grad_norm = global_norm(grads)
-    state.apply_gradients(dict(zip(names, grads)))
-    return grad_norm
+    return _reduce_and_apply(state, names, grads, mesh)
 
 
 def make_distill_step(
@@ -98,6 +106,7 @@ def make_distill_step(
     teacher_mean_type: gd.ModelMeanType = gd.ModelMeanType.EPSILON,
     student_mean_type: gd.ModelMeanType = gd.ModelMeanType.VELOCITY,
     clip_denoised: bool = True,
+    mesh=None,
 ):
     """Build the distillation train step.
 
@@ -111,6 +120,10 @@ def make_distill_step(
     the step folds its update count: the segment index comes from its
     `timesteps(B, K/2)`, the diffusion noise from its `noise(shape)`. The
     metrics {loss, grad_norm (before the clip)} are device tensors.
+
+    `mesh`: every rank calls the step with its rows of the global batch
+    (see the module doc); the metrics are then global, the same on every
+    rank, and in one rank the step is the unmeshed step bit for bit.
     """
     bounds_host = distill_boundaries(sched.num_timesteps, teacher_steps)
     n_student = teacher_steps // 2
@@ -128,7 +141,7 @@ def make_distill_step(
         return a1 * x0 + s1 * eps
 
     def step(state, teacher, batch, draws):
-        device, batch, draws, cond = _step_inputs(state, batch, draws)
+        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh)
         boundaries = _on_device(bounds_host, cache, device)
         x_start = batch["image"]
         B = x_start.shape[0]
@@ -144,10 +157,10 @@ def make_distill_step(
 
         nd = x_t.ndim
         a0, s0 = _alpha_sigma(sched, t0, nd)
-        with torch.no_grad():
+        with torch.no_grad(), whole(teacher) as teacher_module:
             # frozen teacher: two DDIM steps
-            x_mid = teacher_ddim_step(teacher, x_t, t0, t1, cond)
-            x_two = teacher_ddim_step(teacher, x_mid, t1, t2, cond)
+            x_mid = teacher_ddim_step(teacher_module, x_t, t0, t1, cond)
+            x_two = teacher_ddim_step(teacher_module, x_mid, t1, t2, cond)
             a2, s2 = _alpha_sigma(sched, t2, nd)
             # the x0 a ONE-step DDIM from t0 must predict to land on x_two
             ratio = s2 / torch.clamp(s0, min=1e-8)
@@ -156,10 +169,11 @@ def make_distill_step(
             w = torch.clamp((a0 / torch.clamp(s0, min=1e-8)) ** 2, min=1.0)
 
         state.model.train()
-        raw = student_apply(state.model, x_t, t0, *cond)[..., :3]
-        x0_s = _x0_from(raw, x_t, a0, s0, student_mean_type)
-        loss = (w * (x0_s - x0_target) ** 2).mean()
-        grad_norm = _update(state, loss)
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        with gathered(state.model, state.params, state.specs, mesh):
+            raw = student_apply(state.model, x_t, t0, *cond)[..., :3]
+            x0_s = _x0_from(raw, x_t, a0, s0, student_mean_type)
+            loss = (w * (x0_s - x0_target) ** 2).mean()
+            grad_norm = _update(state, loss, mesh)
+        return state, {**_global_means({"loss": loss.detach()}, mesh), "grad_norm": grad_norm}
 
     return step

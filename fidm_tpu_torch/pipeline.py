@@ -14,6 +14,17 @@ a CUDA pipeline (`sampling/program.py`); `install_program` registers it, and
 `inpaint` without `cond_fn` prefers an installed program whose (shape, config,
 seed layout) matches exactly, as the JAX pipeline prefers its AOT executables.
 Everything else runs eagerly. `serving/aot.py` keeps a directory of them.
+
+Under a mesh (`parallel.create_mesh`, one process per rank; every rank makes
+the same call) `inpaint` takes the same whole batch on every rank, runs the
+model on this rank's rows only, with their noise cut from the whole batch's
+draws, and all-gathers the result, so every rank returns the one-process
+call's output. `fsdp_params` keeps the model's large tensors as this rank's
+shards between calls (ZeRO-3), gathered for each call. A meshed pipeline runs
+eagerly: `compile_batch` refuses it, because a program's noise buffers hold
+the draws of its own batch, not a rank's rows of a larger one, and the
+program cache (`serving/aot.py`) refuses it as the JAX package's does.
+`tp_params` and `shard_spatial` (the mesh's "model" axis) are the next slice.
 """
 from __future__ import annotations
 
@@ -123,24 +134,49 @@ def create_model_and_schedule(
 
 
 class InpaintingPipeline:
-    """Model, schedule and sampler config bound into one inpainting call."""
+    """Model, schedule and sampler config bound into one inpainting call;
+    with `mesh`, sharded over the ranks (see the module doc)."""
 
     def __init__(self, model: InpaintingUNet, sched: DiffusionSchedule,
-                 config: PipelineConfig):
+                 config: PipelineConfig, mesh=None, fsdp_params: bool = False,
+                 fsdp_min_size: int = 2**18, tp_params: bool = False,
+                 shard_spatial: bool = False):
         self.model = model
         self.sched = sched
         self.config = config
+        self.mesh = mesh
         self.device = next(model.parameters()).device
+        if tp_params and shard_spatial:
+            raise ValueError(
+                "tp_params and shard_spatial both use the mesh's 'model' "
+                "axis — pick one latency-scaling layout")
+        if tp_params or shard_spatial:
+            from .parallel.mesh import _NEXT_SLICE, axis_size
+
+            if mesh is None or axis_size(mesh, "model") <= 1:
+                raise ValueError(
+                    "tp_params/shard_spatial need a mesh with a 'model' axis "
+                    "(parallel.create_mesh(model=k))")
+            raise NotImplementedError(f"tp_params/shard_spatial: {_NEXT_SLICE}")
+        self._sharded = None
+        if mesh is not None and fsdp_params:
+            from .parallel.collectives import ShardedModule
+
+            self._sharded = ShardedModule(model, mesh, fsdp_min_size)
         # installed programs by ((B, S, S, 3), SamplerConfig, per-row seeds)
         self._programs: Dict[tuple, SamplingProgram] = {}
 
     @classmethod
     def create(cls, config: Optional[PipelineConfig] = None,
-               checkpoint: Optional[str] = None, seed: int = 0, device="cuda"):
+               checkpoint: Optional[str] = None, seed: int = 0, device="cuda", mesh=None,
+               fsdp_params: bool = False, fsdp_min_size: int = 2**18,
+               tp_params: bool = False, shard_spatial: bool = False):
         config = config or PipelineConfig()
         model, sched = create_model_and_schedule(
             config, checkpoint=checkpoint, seed=seed, device=device)
-        return cls(model, sched, config)
+        return cls(model, sched, config, mesh=mesh, fsdp_params=fsdp_params,
+                   fsdp_min_size=fsdp_min_size, tp_params=tp_params,
+                   shard_spatial=shard_spatial)
 
     def cast_params(self, dtype=torch.bfloat16):
         """Cast the model's floating parameters and buffers to `dtype` for
@@ -150,6 +186,9 @@ class InpaintingPipeline:
         installed program, whose graph holds the old parameters' addresses
         and dtypes. Returns self."""
         self.model.to(dtype)
+        if self._sharded is not None:
+            self._sharded.params = {k: v.to(dtype) if v.is_floating_point() else v
+                                    for k, v in self._sharded.params.items()}
         self._programs.clear()
         return self
 
@@ -246,11 +285,35 @@ class InpaintingPipeline:
             program = self._programs.get((tuple(gt.shape), cfg, noise.seeds is not None))
             if program is not None:
                 return program(gt, mask, noise.seed if noise.seeds is None else noise.seeds)
+        if self.mesh is not None:
+            return self._inpaint_meshed(gt, mask, noise, cfg, cond_fn)
         # a cond_fn may take a gradient, which inference tensors cannot give
         with torch.no_grad() if cond_fn is not None else torch.inference_mode():
             return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
                                   noise=noise, cache_apply=self._cache_apply(cfg),
                                   cond_fn=cond_fn)
+
+    def _inpaint_meshed(self, gt, mask, noise, cfg, cond_fn):
+        """This rank's rows of the whole batch, their noise cut from the
+        whole batch's draws, then every rank's rows gathered."""
+        from .parallel.collectives import Rows, RowNoise, gather_rows, whole
+        from .parallel.mesh import batch_index
+
+        B, W = gt.shape[0], self.mesh.size()
+        if B % W:
+            raise ValueError(f"batch {B} does not divide over the {W} ranks of the mesh")
+        b, i = B // W, batch_index(self.mesh)
+        rows = Rows(i * b, (i + 1) * b, B)
+        with torch.no_grad() if cond_fn is not None else torch.inference_mode(), \
+                whole(self._sharded if self._sharded is not None else self.model):
+            out = inpaint_sample(self._apply, self.sched, cfg, gt=rows.of(gt),
+                                 mask=rows.of(mask), noise=RowNoise(noise, rows),
+                                 cache_apply=self._cache_apply(cfg), cond_fn=cond_fn)
+            if isinstance(out, tuple):  # (images, frames): the frames' batch is axis 1
+                images, frames = out
+                return (gather_rows(images, self.mesh),
+                        gather_rows(frames.transpose(0, 1), self.mesh).transpose(0, 1))
+            return gather_rows(out, self.mesh)
 
     def example_inputs(self, batch: int, batched_key: bool = False):
         """(gt, mask, seed) for a batch-`batch` program: float32 zeros
@@ -269,6 +332,11 @@ class InpaintingPipeline:
         after one eager run on a side stream; a failed capture raises. On a
         CPU pipeline the same program without the graph. Install it with
         `install_program`, or persist it with `serving.aot.save_programs`."""
+        if self.mesh is not None:
+            raise ValueError(
+                "compile_batch: a meshed pipeline runs eagerly (a program's noise "
+                "buffers hold the draws of its own batch, not a rank's rows of the "
+                "whole batch's draws)")
         cfg = sampler or self.config.sampler
         self._validate_cache_cfg(cfg)
         gt, _, seed = self.example_inputs(batch, batched_key)

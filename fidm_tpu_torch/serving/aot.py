@@ -71,11 +71,19 @@ def program_path(cache_dir: str, pipeline, batch: int, sampler=None,
     return os.path.join(cache_dir, f"prog_b{batch}_{fp}.json")
 
 
+def _no_mesh(pipeline):
+    if getattr(pipeline, "mesh", None) is not None:
+        raise ValueError("AOT program cache supports single-host pipelines "
+                         "only (mesh is not None)")
+
+
 def save_programs(pipeline, cache_dir: str, batch_sizes, sampler=None,
                   overwrite: bool = False, batched_key: bool = False) -> int:
     """Build and install the program of each batch size whose manifest is
     not on disk yet (or every one with `overwrite`), and write its manifest
-    atomically. Returns the number of manifests written."""
+    atomically. Returns the number of manifests written. Pipelines without
+    a mesh only."""
+    _no_mesh(pipeline)
     os.makedirs(cache_dir, exist_ok=True)
     cfg = sampler or pipeline.config.sampler
     written = 0
@@ -101,7 +109,8 @@ def load_programs(pipeline, cache_dir: str, batch_sizes, sampler=None,
     without an entry is skipped (another fingerprint is another file); an
     unreadable or malformed entry is removed,
     so that the next `save_programs` writes it again. Returns the number of
-    programs installed from the directory."""
+    programs installed from the directory. Pipelines without a mesh only."""
+    _no_mesh(pipeline)
     cfg = sampler or pipeline.config.sampler
     loaded = 0
     for batch in batch_sizes:

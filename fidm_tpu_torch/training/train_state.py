@@ -20,12 +20,23 @@ waits for the card (the loop reads them once per epoch).
   `m / (sqrt(v) + eps)`; the decay `wd * param` added after Adam; and the
   step `-lr(count) * update` with the count of the updates before this one.
   `param_mask` freezes: a masked-out parameter gets no update at all, and
-  the clip's norm is taken over the trainable gradients only.
+  the clip's norm is taken over the trainable gradients only (under a mesh
+  too: the optimizer takes that norm itself, over the fsdp shards).
 - The parameters live in the model and are updated in place. With
   `param_transform` (LoRA) the trained tensors are other tensors, and
   `param_transform(params)` gives the model weights they stand for
   (`models.layers.weight_overrides`), applied for the forward and the
   backward of the step.
+- Under a mesh (`parallel.create_mesh`, one process per rank) each rank's
+  batch is its rows of the global batch, and its draws are its rows of the
+  draws of the global batch (`parallel.collectives.RowDraws`), so the ranks
+  together take the one-process step; the gradients are averaged over the
+  ranks before the clip, and the metrics are global means, the same on
+  every rank. A state made from `parallel.shard_params(..., use_fsdp=True)`
+  (`TrainState.create(..., specs=specs)`) holds the sharded parameters and
+  their moments as this rank's shards: the step gathers them into the model
+  for the forward and backward, reduce-scatters their gradients, and leaves
+  an empty placeholder in the model between steps (ZeRO-3).
 """
 from __future__ import annotations
 
@@ -97,13 +108,16 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _clip(grads: List[torch.Tensor], max_norm: float, norm: torch.Tensor) -> List[torch.Tensor]:
+    coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    return torch._foreach_mul(grads, coef)
+
+
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
     """optax's `clip_by_global_norm`: every gradient times max_norm / norm
     when norm >= max_norm, unchanged otherwise. No host sync."""
     grads = list(grads)
-    norm = global_norm(grads)
-    coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    return torch._foreach_mul(grads, coef)
+    return _clip(grads, max_norm, global_norm(grads))
 
 
 class Optimizer:
@@ -157,10 +171,18 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: Dict,
-               params: Dict[str, torch.Tensor]) -> None:
+               params: Dict[str, torch.Tensor], specs: Optional[Dict] = None,
+               mesh=None) -> None:
+        """One update in place. The clip's norm is that of the trainable
+        gradients; where `specs` make some of them this rank's fsdp shards,
+        the norm of the whole (the shards' squares summed over `mesh`'s fsdp
+        axis), the same on every rank."""
+        from ..parallel.collectives import global_grad_norm
+
         keys = self.trainable(params)
         p = [params[k] for k in keys]
-        g = clip_by_global_norm([grads[k] for k in keys], self.grad_clip)
+        g = [grads[k] for k in keys]
+        g = _clip(g, self.grad_clip, global_grad_norm(keys, g, specs, mesh))
         updates = self.adam_updates(g, state, keys, p)
         # the schedule at the count of the updates made before this one
         torch._foreach_add_(p, torch._foreach_mul(updates, -self.lr_schedule(state["count"])))
@@ -182,7 +204,11 @@ class TrainState:
 
     `params` are the model's own parameters (`dict(model.named_parameters())`)
     or, with LoRA, the adapter's tensors; `ema_params` (from
-    `training.ema.init_ema`) is kept by `make_train_step(ema_decay=...)`."""
+    `training.ema.init_ema`) is kept by `make_train_step(ema_decay=...)`.
+    `specs` (from `parallel.shard_params`) are the placements of `params`
+    over a mesh's fsdp axis: a `Shard(d)` entry of `params` is this rank's
+    shard, and so are its moments and its EMA; None means every tensor is
+    whole."""
 
     model: nn.Module
     params: Dict[str, torch.Tensor]
@@ -190,14 +216,17 @@ class TrainState:
     opt_state: Dict
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    specs: Optional[Dict] = None
 
     @classmethod
     def create(cls, model: nn.Module, params: Dict[str, torch.Tensor], tx: Optimizer,
-               ema_params=None) -> "TrainState":
-        return cls(model, params, tx, tx.init(params), 0, ema_params)
+               ema_params=None, specs=None) -> "TrainState":
+        return cls(model, params, tx, tx.init(params), 0, ema_params, specs)
 
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
-        self.tx.update(grads, self.opt_state, self.params)
+    def apply_gradients(self, grads: Dict[str, torch.Tensor], mesh=None) -> "TrainState":
+        """One optimizer update; `grads` in the state's layout (`mesh`: the
+        mesh of the state's fsdp shards)."""
+        self.tx.update(grads, self.opt_state, self.params, self.specs, mesh)
         self.step += 1
         return self
 
@@ -261,7 +290,15 @@ def _loss_for_batch(model, sched: DiffusionSchedule, batch, draws, *, loss_type,
             raise ValueError("label_dropout requires null_label")
         from ..sampling.cfg import drop_labels
 
-        y = drop_labels(draws.fold(1).generator(), y, label_dropout, null_label)
+        rows = getattr(draws, "rows", None)
+        if rows is None:
+            y = drop_labels(draws.fold(1).generator(), y, label_dropout, null_label)
+        else:  # this rank's rows of the global batch's drops
+            y_all = torch.zeros((rows.total,) + tuple(y.shape[1:]), dtype=y.dtype,
+                                device=y.device)
+            y_all[rows.lo:rows.hi] = y
+            y = rows.of(drop_labels(draws.fold(1).generator(), y_all, label_dropout,
+                                    null_label))
 
     def model_fn(x_t, tt, masked_image, mask):
         if y is not None:
@@ -280,6 +317,58 @@ def _loss_for_batch(model, sched: DiffusionSchedule, batch, draws, *, loss_type,
     return terms["loss"], terms
 
 
+def _mesh_inputs(state, batch, draws, mesh):
+    """The step's batch on the state's device and its draws; under a mesh
+    the draws are this rank's rows of the global batch's."""
+    device = next(iter(state.params.values())).device
+    batch = _device_batch(batch, device)
+    draws = _as_draws(draws, device)
+    if mesh is not None:
+        from ..parallel.collectives import RowDraws, rank_rows
+
+        draws = RowDraws(draws, rank_rows(mesh, batch["image"].shape[0]))
+    return device, batch, draws
+
+
+def _check_specs(state, mesh):
+    """The state's sharded names (none without a mesh, where a sharded state
+    is an error)."""
+    from ..parallel.collectives import sharded_names
+
+    names = sharded_names(state.specs)
+    if names and mesh is None:
+        raise ValueError("the state holds fsdp shards (specs from parallel.shard_params): "
+                         "build the step with mesh=")
+    return names
+
+
+def _reduce_and_apply(state: TrainState, names: List[str], grads: List[torch.Tensor],
+                      mesh) -> torch.Tensor:
+    """A step's gradients (one per name of `state.params`) averaged over the
+    ranks into the state's layout (as they are without a mesh), then one
+    optimizer update; returns the global norm of all of them before the
+    clip, the step's `grad_norm`."""
+    from ..parallel.collectives import global_grad_norm, reduce_gradients
+
+    grads = reduce_gradients(names, grads, state.specs, mesh)
+    grad_norm = global_grad_norm(names, grads, state.specs, mesh)
+    state.apply_gradients(dict(zip(names, grads)), mesh)
+    return grad_norm
+
+
+def _global_means(values: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """0-d metrics -> their means over the ranks (one collective); as they
+    are without a mesh."""
+    if mesh is None:
+        return values
+    from ..parallel.collectives import mean_over_ranks
+
+    keys = list(values)
+    vec = torch.stack([values[k].float() for k in keys])
+    mean_over_ranks([vec], mesh)
+    return {k: vec[i] for i, k in enumerate(keys)}
+
+
 def make_train_step(
     sched: DiffusionSchedule,
     *,
@@ -291,12 +380,14 @@ def make_train_step(
     vb_weight: float = 0.0,
     loss_weight: str = "none",
     loss_weight_gamma=None,
+    mesh=None,
     param_transform: Optional[Callable] = None,
     ema_decay: Optional[float] = None,
     label_dropout: float = 0.0,
     null_label: Optional[int] = None,
     use_labels: bool = True,
     accum_steps: int = 1,
+    spatial: bool = False,
 ):
     """step(state, batch, draws) -> (state, metrics), updating the state in
     place. `batch` is a dict of NHWC arrays or tensors {image, masked_image,
@@ -313,68 +404,106 @@ def make_train_step(
     frozen base. The model runs in train() mode with dropout off, as the
     JAX step runs it.
 
-    Metrics, as device tensors: loss, mse, grad_norm (before the clip),
-    mask_coverage, and vb when the loss has it."""
+    `mesh` (a `parallel.create_mesh` mesh; every rank calls the step): the
+    batch is this rank's rows of the global batch (`DataLoader(
+    process_local=True)` yields them; `parallel.shard_batch` cuts them from
+    a whole batch), the draws its rows of the global draws, microbatch i its
+    rows of global microbatch i; the gradients are averaged over the ranks
+    before the clip; fsdp-sharded tensors of the state are gathered for the
+    forward and their gradients reduce-scattered. In one rank the step is
+    the unmeshed step bit for bit. `spatial=True` is the next slice's.
+
+    Metrics, as device tensors (global means under a mesh): loss, mse,
+    grad_norm (before the clip), mask_coverage, and vb when the loss has it."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
+    if spatial:
+        if mesh is None:
+            raise ValueError("spatial=True requires a mesh")
+        from ..parallel.mesh import _NEXT_SLICE
+
+        raise NotImplementedError(f"make_train_step(spatial=True): {_NEXT_SLICE}")
     loss_kw = dict(loss_type=loss_type, var_type=var_type, mean_type=mean_type,
                    use_injection=use_injection, injection_schedule=injection_schedule,
                    vb_weight=vb_weight, loss_weight=loss_weight,
                    loss_weight_gamma=loss_weight_gamma, label_dropout=label_dropout,
                    null_label=null_label, use_labels=use_labels)
 
-    def step(state: TrainState, batch, draws):
-        device = next(iter(state.params.values())).device
-        batch = _device_batch(batch, device)
-        draws = _as_draws(draws, device).fold(state.step)
-        state.model.train()
-        names = list(state.params)
-        leaves = [state.params[k] for k in names]
-
-        def value_and_grad(mb, d):
-            overrides = param_transform(state.params) if param_transform is not None else {}
-            with weight_overrides(overrides):
-                loss, terms = _loss_for_batch(state.model, sched, mb, d, **loss_kw)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-            return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
-
-        if accum_steps == 1:
-            loss, terms, grads = value_and_grad(batch, draws)
-        else:
-            B = batch["image"].shape[0]
-            if B % accum_steps:
-                raise ValueError(f"batch {B} not divisible by accum_steps {accum_steps}")
+    def microbatches(batch):
+        """accum_steps microbatches of this rank's rows."""
+        B = batch["image"].shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} not divisible by accum_steps {accum_steps}")
+        if mesh is None or mesh.size() == 1:
             micro = {k: v.reshape((accum_steps, B // accum_steps) + tuple(v.shape[1:]))
                      for k, v in batch.items()}
-            grads = loss = terms = None
-            for i, d in enumerate(draws.split(accum_steps)):
-                l, tm, g = value_and_grad({k: v[i] for k, v in micro.items()}, d)
-                if grads is None:
-                    grads, loss, terms = g, l, tm
-                else:
-                    torch._foreach_add_(grads, g)
-                    loss = loss + l
-                    terms = {k: terms[k] + tm[k] for k in terms}
-            inv = 1.0 / accum_steps
-            torch._foreach_mul_(grads, inv)
-            loss = loss * inv
-            terms = {k: v * inv for k, v in terms.items()}
-        grad_norm = global_norm(grads)
-        state.apply_gradients(dict(zip(names, grads)))
+            return [{k: v[i] for k, v in micro.items()} for i in range(accum_steps)]
+        from ..parallel.collectives import gather_rows, rank_rows
+
+        # microbatch i of the GLOBAL batch, and this rank's rows of it
+        lo, hi, total = rank_rows(mesh, B)
+        full = {k: gather_rows(v, mesh) for k, v in batch.items()}
+        Bm, m = total // accum_steps, B // accum_steps
+        r0 = lo // accum_steps
+        return [{k: v[i * Bm + r0: i * Bm + r0 + m] for k, v in full.items()}
+                for i in range(accum_steps)]
+
+    def step(state: TrainState, batch, draws):
+        from ..parallel.collectives import gathered
+
+        sharded = set(_check_specs(state, mesh))
+        if sharded and param_transform is not None:
+            raise ValueError("fsdp-sharded trained tensors with param_transform: shard "
+                             "only the model's own parameters")
+        device, batch, draws = _mesh_inputs(state, batch, draws, mesh)
+        draws = draws.fold(state.step)
+        state.model.train()
+        names = list(state.params)
+
+        with gathered(state.model, state.params, state.specs, mesh):
+            model_params = dict(state.model.named_parameters()) if sharded else {}
+            leaves = [model_params[k] if k in sharded else state.params[k] for k in names]
+
+            def value_and_grad(mb, d):
+                overrides = (param_transform(state.params) if param_transform is not None
+                             else {})
+                with weight_overrides(overrides):
+                    loss, terms = _loss_for_batch(state.model, sched, mb, d, **loss_kw)
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+                return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
+
+            if accum_steps == 1:
+                loss, terms, grads = value_and_grad(batch, draws)
+            else:
+                grads = loss = terms = None
+                for mb, d in zip(microbatches(batch), draws.split(accum_steps)):
+                    l, tm, g = value_and_grad(mb, d)
+                    if grads is None:
+                        grads, loss, terms = g, l, tm
+                    else:
+                        torch._foreach_add_(grads, g)
+                        loss = loss + l
+                        terms = {k: terms[k] + tm[k] for k in terms}
+                inv = 1.0 / accum_steps
+                torch._foreach_mul_(grads, inv)
+                loss = loss * inv
+                terms = {k: v * inv for k, v in terms.items()}
+        grad_norm = _reduce_and_apply(state, names, grads, mesh)
         if ema_decay is not None and state.ema_params is not None:
             from .ema import update_ema
 
             update_ema(state.ema_params, state.params, ema_decay)
-        metrics = {
-            "loss": loss,
-            "mse": terms.get("mse", loss),
-            "grad_norm": grad_norm,
-            # the fraction of pixels being inpainted
-            "mask_coverage": batch["mask"].mean(),
-        }
+        means = {"loss": loss, "mse": terms.get("mse", loss),
+                 # the fraction of pixels being inpainted
+                 "mask_coverage": batch["mask"].mean()}
         if "vb" in terms:
-            metrics["vb"] = terms["vb"]
+            means["vb"] = terms["vb"]
+        means = _global_means(means, mesh)
+        metrics = {"loss": means["loss"], "mse": means["mse"], "grad_norm": grad_norm,
+                   "mask_coverage": means["mask_coverage"]}
+        if "vb" in means:
+            metrics["vb"] = means["vb"]
         return state, metrics
 
     return step
@@ -391,25 +520,31 @@ def make_eval_step(
     vb_weight: float = 0.0,
     loss_weight: str = "none",
     loss_weight_gamma=None,
+    mesh=None,
     param_transform: Optional[Callable] = None,
     use_labels: bool = True,
 ):
     """step(state, batch, draws) -> {"loss", "mse"}: the validation loss,
     without gradients, with `draws` used as given (no update count folded
-    in)."""
+    in). Under `mesh` the batch and the draws are this rank's rows, as in
+    `make_train_step`, and the losses are the global means, the same on
+    every rank."""
 
     @torch.no_grad()
     def step(state: TrainState, batch, draws):
-        device = next(iter(state.params.values())).device
-        batch = _device_batch(batch, device)
+        from ..parallel.collectives import gathered
+
+        _check_specs(state, mesh)
+        device, batch, draws = _mesh_inputs(state, batch, draws, mesh)
         overrides = param_transform(state.params) if param_transform is not None else {}
-        with weight_overrides(overrides):
+        with gathered(state.model, state.params, state.specs, mesh), \
+                weight_overrides(overrides):
             loss, terms = _loss_for_batch(
-                state.model, sched, batch, _as_draws(draws, device),
+                state.model, sched, batch, draws,
                 loss_type=loss_type, var_type=var_type, mean_type=mean_type,
                 use_injection=use_injection, injection_schedule=injection_schedule,
                 vb_weight=vb_weight, loss_weight=loss_weight,
                 loss_weight_gamma=loss_weight_gamma, use_labels=use_labels)
-        return {"loss": loss, "mse": terms.get("mse", loss)}
+        return _global_means({"loss": loss, "mse": terms.get("mse", loss)}, mesh)
 
     return step

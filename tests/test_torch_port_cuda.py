@@ -600,3 +600,77 @@ def test_quantize_tensor_dispatch_on_the_card(cuda):
             assert torch.equal(nearest["q"].cpu(), cpu["q"])
         else:
             assert torch.equal(out["q"].cpu(), cpu["q"])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_one_rank_nccl_mesh_step_is_the_unmeshed_step(cuda, masked):
+    """A train step under a one-rank NCCL mesh equals the unmeshed step bit
+    for bit, with the attention kernel launched 4 times per forward (a
+    width-64-head config: 3 attention blocks at 16² and the middle one);
+    also with the biases frozen by a param_mask."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.models import InpaintingUNet
+    from fidm_tpu_torch.parallel import create_mesh, shard_batch
+    from fidm_tpu_torch.training import TrainState, make_optimizer, make_train_step
+
+    cfg = UNetConfig(image_size=32, in_channels=9, model_channels=64, out_channels=6,
+                     num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                     num_heads=1, num_head_channels=64, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy((0.5 * rng.standard_normal((4, 32, 32, 3))).astype(np.float32))
+    mask = torch.zeros(4, 32, 32, 1)
+    mask[:, 8:24, 4:20] = 1.0
+    batch = {"image": img, "masked_image": img * (1 - mask), "mask": mask}
+    sched = DiffusionSchedule.create("quadratic", 1000, device=cuda)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = create_mesh(data=1, fsdp=1)
+        runs = []
+        for m in (None, mesh):
+            torch.manual_seed(0)
+            model = InpaintingUNet(cfg).to(cuda)
+            params = dict(model.named_parameters())
+            mask = {k: not k.endswith(".bias") for k in params} if masked else None
+            state = TrainState.create(model, params,
+                                      make_optimizer(lambda c: 1e-4, param_mask=mask))
+            step = make_train_step(sched, mesh=m)
+            before = LAUNCHES["attention"]
+            metrics = [step(state, batch if m is None else shard_batch(batch, m), 3)[1]
+                       for _ in range(2)]
+            torch.cuda.synchronize()
+            runs.append((metrics, [p.detach().clone() for p in model.parameters()],
+                         LAUNCHES["attention"] - before))
+    finally:
+        dist.destroy_process_group()
+    (m0, p0, n0), (m1, p1, n1) = runs
+    assert n0 == n1 == 2 * 4  # two steps, one forward each
+    for a, b in zip(m0, m1):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def test_native_normalize_matches_numpy_on_card_inputs(cuda):
+    """The C++ normalize and compose against numpy on a 256² batch of 4, as
+    the tensors the card receives: equal but for the last bit."""
+    from fidm_tpu_torch.data import random_mask
+    from fidm_tpu_torch.data.dataset import _normalize_compose
+    from fidm_tpu_torch.native import build
+
+    assert build.load() is not None, build.last_error("native")
+    rng = np.random.default_rng(1)
+    u8 = rng.integers(0, 256, (4, 256, 256, 3), dtype=np.uint8)
+    masks = np.stack([random_mask(np.random.default_rng(i), 256) for i in range(4)])
+    native = [_normalize_compose(u, m) for u, m in zip(u8, masks)]
+    image = torch.from_numpy(np.stack([n[0] for n in native])).to(cuda)
+    masked = torch.from_numpy(np.stack([n[1] for n in native])).to(cuda)
+    ref = torch.from_numpy(u8).to(cuda).float() / 255.0 * 2.0 - 1.0
+    assert (image - ref).abs().max().item() <= float(np.spacing(np.float32(1.0)))
+    assert torch.equal(masked, image * (1.0 - torch.from_numpy(masks).to(cuda)))

@@ -1,14 +1,15 @@
 """The port's data modules (masks, packed shards, the inference dataset)
 against the JAX package's.
 
-Procedural masks are the same numpy stroke model, so with the same
-`np.random.Generator` they are bit-equal to `fidm_tpu`'s numpy path
-(`use_native=False`). Dataset items are bit-equal to `fidm_tpu`'s when it
-takes its numpy normalize; where it takes its C++ kernel
-(native/maskgen.cpp, built here) they are within 1e-6, because the kernel
-computes u8 * (2/255) - 1 and numpy u8 / 255 * 2 - 1, which differ in the
-last bit of a float32 in [-1, 1]. Both decode files bit-identically (PIL in
-the port; in `fidm_tpu` its native loader, which matches PIL, or PIL).
+Both packages build their C++ helpers here (native/maskgen.cpp and
+imgload.cpp, each its own copy), and both take them by default: procedural
+masks, decoded files and dataset items are bit-equal between the defaults.
+With the helpers off (`use_native=False`, or `load` patched to None on both
+sides) the numpy stroke model and the numpy normalize run, and they are
+bit-equal too. The two normalizations differ from each other in the last bit
+of a float32 in [-1, 1] (the kernel computes u8 * (2/255) - 1, numpy
+u8 / 255 * 2 - 1), so a port on one path is never held against JAX on the
+other.
 """
 import json
 
@@ -17,6 +18,7 @@ import pytest
 from PIL import Image
 
 import fidm_tpu.native.build as jax_native_build
+import fidm_tpu_torch.native.build as port_native_build
 from fidm_tpu.data import dataset as jax_dataset
 from fidm_tpu.data import masks as jax_masks
 from fidm_tpu.data import shards as jax_shards
@@ -73,7 +75,7 @@ def test_box_and_brush_masks_bit_equal(seed):
 @pytest.mark.parametrize("kind", ["mixed", "box", "brush"])
 def test_random_mask_is_the_numpy_path(kind):
     for seed in range(4):
-        ours = random_mask(np.random.default_rng(seed), 32, kind=kind)
+        ours = random_mask(np.random.default_rng(seed), 32, kind=kind, use_native=False)
         ref = jax_masks.random_mask(np.random.default_rng(seed), 32, kind=kind,
                                     use_native=False)
         assert ours.dtype == np.float32 and ours.shape == (32, 32, 1)
@@ -147,37 +149,39 @@ def test_dataset_items_match_jax(data_tree, tmp_path, monkeypatch, source, mode)
     ref = jax_dataset.InpaintingDataset(data_dir, mask_root, "test", SIZE, mode, seed=3)
     assert [str(m) for m in ours.mask_sequence] == [str(m) for m in ref.mask_sequence]
     assert ours.reader is not None if source == "packed" else ours.reader is None
-    # fidm_tpu with its C++ normalize: the last bit differs (see the module doc)
-    _assert_items_equal(ours, ref, atol=1e-6)
-    # fidm_tpu's numpy normalize, the port's: bit-equal
+    # both defaults, the C++ normalize: bit-equal
+    _assert_items_equal(ours, ref, atol=0)
+    # both numpy normalizes: bit-equal
     monkeypatch.setattr(jax_native_build, "load", lambda: None)
+    monkeypatch.setattr(port_native_build, "load", lambda: None)
+    ours = InpaintingDataset(data_dir, mask_root, "test", SIZE, mode, seed=3)
     ref = jax_dataset.InpaintingDataset(data_dir, mask_root, "test", SIZE, mode, seed=3)
     _assert_items_equal(ours, ref, atol=0)
 
 
 def test_procedural_items(data_tree, monkeypatch):
     """Item i's mask is `random_mask` from a generator seeded with
-    seed * 1_000_003 + i. (`fidm_tpu` draws a seed for its C++ rasterizer
-    from that generator first, also when the rasterizer is not built, so
-    its procedural masks differ from these; its images do not.)"""
+    seed * 1_000_003 + i; both packages draw a seed for their C++
+    rasterizer from that generator, so the items are `fidm_tpu`'s bit for
+    bit."""
     img_dir, _ = data_tree
-    monkeypatch.setattr(jax_native_build, "load", lambda: None)
     ours = InpaintingDataset(img_dir, None, "", SIZE, "procedural", seed=5)
     ref = jax_dataset.InpaintingDataset(img_dir, None, "", SIZE, "procedural", seed=5)
     for i in range(len(ours)):
         a, b = ours[i], ref[i]
         mask = random_mask(np.random.default_rng(5 * 1_000_003 + i), SIZE)
         np.testing.assert_array_equal(a["mask"], mask)
+        np.testing.assert_array_equal(a["mask"], b["mask"])
         np.testing.assert_array_equal(a["image"], b["image"])
+        np.testing.assert_array_equal(a["masked_image"], b["masked_image"])
         np.testing.assert_array_equal(a["masked_image"], a["image"] * (1.0 - mask))
         assert a["mask_path"] == b["mask_path"] == f"<procedural:{i}>"
     with pytest.raises(ValueError, match="mask_dir required"):
         InpaintingDataset(img_dir, None, "", SIZE, "serial")
 
 
-def test_loaders_match_jax(data_tree, monkeypatch):
+def test_loaders_match_jax(data_tree):
     img_dir, mask_root = data_tree
-    monkeypatch.setattr(jax_native_build, "load", lambda: None)
     ours = create_inference_dataloader(img_dir, mask_root, batch_size=2, img_size=SIZE,
                                        num_samples=5, seed=1)
     ref = jax_dataset.create_inference_dataloader(img_dir, mask_root, batch_size=2,
@@ -197,9 +201,11 @@ def test_loaders_match_jax(data_tree, monkeypatch):
             assert paths == [b["image_path"] for b in jloader]
 
 
-def test_packed_directory_written_with_numpy_reads(tmp_path):
+def test_packed_directory_written_with_numpy_reads(tmp_path, monkeypatch):
     """A packed directory written with numpy alone (no image files), as
-    `chip_smoke.py` writes one for calibration, reads at its own size."""
+    `chip_smoke.py` writes one for calibration, reads at its own size (the
+    numpy normalize, whose formula the test writes out)."""
+    monkeypatch.setattr(port_native_build, "load", lambda: None)
     arr = np.random.default_rng(2).integers(0, 256, (3, SIZE, SIZE, 3), dtype=np.uint8)
     np.save(tmp_path / "shard_00000.npy", arr)
     index = {"img_size": SIZE, "num_images": 3,

@@ -114,9 +114,9 @@ class JaxDistillDraws:
 class RecordingOptimizer(Optimizer):
     """The port's AdamW, keeping the gradients of its last update."""
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, *args):
         self.grads = {k: g.detach().clone() for k, g in grads.items()}
-        super().update(grads, state, params)
+        super().update(grads, state, params, *args)
 
 
 def _recording(tx):
@@ -544,7 +544,8 @@ def test_cli_refusals_word_for_word(argv):
 
 
 def test_cli_refuses_fsdp_and_defaults_to_cuda(tree, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # --fsdp shards over ranks: one process without a process group has none
+    with pytest.raises(ValueError, match="needs a process group"):
         _distill(tree, tmp_path / "f", "--checkpoint", str(tree / "teacher.pt"), "--fsdp", "2")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -194,8 +194,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_package_imports_no_jax():
     """`fidm_tpu_torch` stands alone: importing every module of it (the
-    quantization, data and CLI modules included) loads no JAX, Flax or
-    `fidm_tpu` module."""
+    quantization, data, native, parallel and CLI modules included) loads no
+    JAX, Flax or `fidm_tpu` module."""
     code = (
         "import importlib, pkgutil, sys, fidm_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(fidm_tpu_torch.__path__, "
@@ -206,7 +206,10 @@ def test_package_imports_no_jax():
         "'fidm_tpu_torch.cli.quantize', 'fidm_tpu_torch.serving.server', "
         "'fidm_tpu_torch.cli.serve', 'fidm_tpu_torch.distill', "
         "'fidm_tpu_torch.distill.progressive', 'fidm_tpu_torch.distill.consistency', "
-        "'fidm_tpu_torch.cli.distill', 'fidm_tpu_torch.cli.export_torch'} <= set(names), "
+        "'fidm_tpu_torch.cli.distill', 'fidm_tpu_torch.cli.export_torch', "
+        "'fidm_tpu_torch.native.build', 'fidm_tpu_torch.native.imgload', "
+        "'fidm_tpu_torch.parallel.mesh', 'fidm_tpu_torch.parallel.multihost', "
+        "'fidm_tpu_torch.parallel.collectives'} <= set(names), "
         "names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fidm_tpu'))\n"
