@@ -60,9 +60,9 @@ Phases, one line each (or a few), any failure exits non-zero:
    card held against the CPU; last, one float32 UNet forward profiled (the
    forward of `--dtype f32`), with torch's TF32 switches and with both off;
 9. the rest of sampling at full width on phase 3's model and inputs: the
-   presets `ddpm-1000` (beside the reference's published s/sample),
-   `ddpm-100`, `dpm3-20`, `unipc-20`, `consistency-2` and
-   `repaint-100-light`; classifier guidance with `ddim-30` (a closed-form
+   presets `ddpm-100`, `dpm3-20`, `unipc-20`, `consistency-2` and
+   `repaint-100-light` (`ddpm-1000`, 1000 model evaluations, is not run: a
+   cut of depth that pays for phase 14); classifier guidance with `ddim-30` (a closed-form
    gradient) and `ddpm-100` (a gradient taken by autograd) through
    `InpaintingPipeline.inpaint`; classifier-free guidance at scale 3 on a
    class-conditional model (batch 8 per model call); `ddim-50` with a
@@ -87,9 +87,9 @@ Phases, one line each (or a few), any failure exits non-zero:
    memory, ms per step);
 11. the warm program cache at full width on phase 3's model and inputs:
    `compile_batch` / `install_program` programs (CUDA graphs of one whole
-   sampler call) for `ddim-100` and `dpm-25-sde` at batch 4 with one seed
-   and with per-row seeds, and for `ddim-100-deep` and `ddim-100` at
-   bench.py's batch 16, each replay bit-equal to the eager call, with its
+   sampler call) for `ddim-100` at batch 4 with one seed, `dpm-25-sde` with
+   one seed and with per-row seeds, and `ddim-100-deep` at bench.py's batch
+   16, each replay bit-equal to the eager call, with its
    attention launches, times (capture, replay, the host's buffer fill) and
    memory; one replay's kernels in the profiler; `serving.serve` with a
    program cache directory over phase 6's presets and ladder, restarted on
@@ -124,10 +124,21 @@ Phases, one line each (or a few), any failure exits non-zero:
    again over its directory with and without the group (the same history,
    files, best.json and state); ms per step with and without the mesh; the
    group destroyed after it;
-14. a JSON line of the kernels, then the contract line
+14. the mesh's "model" axis: two ranks over gloo on the card (NCCL refuses
+   two ranks on one device), each a process of its own with CUDA tensors and
+   the built kernel libraries, a `create_mesh(data=1, fsdp=1, model=2)`, at
+   full width from phase 5's `.pt`, batch 2: a tensor-parallel and a
+   spatially partitioned forward against the unmeshed forward in float32
+   and in bf16 (4 attention launches on each rank, under TP at 4 of the 8
+   heads; the TP forward also against itself with the plain attention), one
+   train step of each layout against the unmeshed step in float32, and a
+   10-step DDIM through `InpaintingPipeline(tp_params=True)` and
+   `(shard_spatial=True)` against the unmeshed call (known pixels bit-equal
+   to gt); the ranks' times are printed, and are no scaling figure;
+15. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
-Both TF32 switches are off in phases 1-7, 9, 11 and 13, so float32 products and
+Both TF32 switches are off in phases 1-7, 9, 11, 13 and 14, so float32 products and
 convolutions are full float32 wherever numbers are compared. Phases 8, 10 and 12
 run the CLIs under torch's own switches, as a user's process has them: there
 the metric networks keep full float32 by their own scoping, which its gates
@@ -277,9 +288,6 @@ EVAL_KEYS = {"num_samples", "preset", "sampler", "ssim_mean", "psnr_mean", "hole
 EVAL_FID_KEYS = {"fid", "kid_mean", "kid_std"}
 EVAL_LPIPS_KEYS = {"lpips_mean", "hole_lpips_mean"}
 EVAL_PER_SAMPLE = {"ssim", "psnr", "hole_ssim", "hole_psnr"}
-# Phase 9: the reference's published DDPM-1000 time per sample (unspecified
-# GPU, ROADMAP.md "Source paper"), printed beside the port's.
-REFERENCE_DDPM1000_S = 33.41
 # Phase 11. One UNet forward with the parameters cast to bf16
 # (`cast_params`) against the float32 parameters, both with bf16
 # activations, max abs / max |float32 parameters|: each weight moves by at
@@ -1703,16 +1711,11 @@ def phase_sampling(torch, np, ckpt, n_attn, smi):
         check_images(torch, f"[9] {label}", images, gt, keep)
         return out, secs
 
-    # the presets refused before this slice, at their full step counts
+    # the other methods' presets, at their full step counts
     outs = {}
-    for name in ("ddpm-1000", "ddpm-100", "dpm3-20", "unipc-20", "consistency-2",
-                 "repaint-100-light"):
+    for name in ("ddpm-100", "dpm3-20", "unipc-20", "consistency-2", "repaint-100-light"):
         cfg = SAMPLER_PRESETS[name]
-        outs[name], secs = run(name, cfg, lambda: pipe.inpaint(gt, mask, 0, sampler=cfg))
-        if name == "ddpm-1000":
-            print(f"[9] ddpm-1000: {secs / BATCH:.4f} s per sample at batch {BATCH}; the "
-                  f"reference publishes {REFERENCE_DDPM1000_S} s per sample (unspecified GPU)",
-                  flush=True)
+        outs[name], _ = run(name, cfg, lambda: pipe.inpaint(gt, mask, 0, sampler=cfg))
     rows = len(_method_tables(pipe.sched, SAMPLER_PRESETS["repaint-100-light"])["t"])
     print(f"[9] repaint-100-light: {rows} table rows, "
           f"{preset_steps(pipe.sched, SAMPLER_PRESETS['repaint-100-light'])[0]} of them "
@@ -2364,8 +2367,8 @@ def phase_programs(torch, np, ckpt, n_attn, refs, serving6, smi):
     (ref0, ddim_s), (ref_sde, sde_s) = refs["ddim-100"], refs["dpm-25-sde"]
     ddim_program = program_run(f"[11] ddim-100 B={BATCH} one seed", "ddim-100", gt, mask, keep,
                                0, ref0, ddim_s, expect["ddim-100"])
-    program_run(f"[11] ddim-100 B={BATCH} per-row seeds", "ddim-100", gt, mask, keep, seeds,
-                None, None, expect["ddim-100"])
+    # per-row seeds at batch 4 with dpm-25-sde only: a cut of depth that pays
+    # for phase 14 (the server below replays ddim-100 with per-row seeds)
     program_run(f"[11] dpm-25-sde B={BATCH} one seed", "dpm-25-sde", gt, mask, keep, 0,
                 ref_sde, sde_s, expect["dpm-25-sde"])
     program_run(f"[11] dpm-25-sde B={BATCH} per-row seeds", "dpm-25-sde", gt, mask, keep,
@@ -3327,6 +3330,309 @@ def phase_parallel(torch, np, ckpt, n_attn, refs, smi):
     return total["attention.bf16"]
 
 
+# Phase 14, the mesh's "model" axis: two ranks over gloo on the one card (NCCL
+# refuses two ranks on one device), a mesh (data=1, fsdp=1, model=2), phase
+# 5's `.pt`, batch 2 at full width. The forwards and train steps in float32
+# with TF32 off are held to JAX's own bounds of sharded against unsharded
+# (tests/test_tp.py): a forward 1e-4 of its largest value (phase 4's float32
+# bound), a train step's loss 1e-5 relative and its parameters 2e-5 after one
+# AdamW step at a learning rate of 5e-6. That step moves a parameter by about
+# lr whatever its gradient's size, so the parameters alone cannot tell a
+# wrong gradient; the step's gradients (the reduced ones its optimizer gets,
+# joined whole) are held to the unmeshed step's at the CPU test's bound, 2e-5
+# of each tensor's largest value plus 1e-7, and its grad_norm at 1e-5
+# relative. bf16 forwards at phase 4's bound, the 10-step DDIM images (and a
+# 10-step `ddim-100-deep`, its feature cache under both layouts) at phase 4's
+# hole mean abs.
+MODEL_AXIS_RANKS = 2
+MODEL_AXIS_BATCH = 2
+MODEL_AXIS_LR = 5e-6
+MODEL_AXIS_STEPS = 10
+MODEL_AXIS_CACHE_TAIL = 2
+MODEL_AXIS_LOSS_RTOL = 1e-5
+MODEL_AXIS_NORM_RTOL = 1e-5
+MODEL_AXIS_PARAM_TOL = 2e-5
+MODEL_AXIS_GRAD_REL = 2e-5
+MODEL_AXIS_GRAD_FLOOR = 1e-7
+MODEL_AXIS_TIMEOUT = 300
+NOT_SCALING = "two ranks on one card over gloo: not a scaling figure"
+
+
+def model_axis_rank(rank, port, workdir, ckpt):
+    """One rank of phase 14 (`python3 chip_smoke.py --model-axis-rank RANK
+    PORT WORKDIR CKPT`): a gloo process group of MODEL_AXIS_RANKS on the
+    card, every gate checked here (a failed one exits non-zero), the bf16
+    attention launches of its kernel-path calls written to
+    WORKDIR/rank<RANK>.json."""
+    import torch
+    import torch.distributed as dist
+
+    rank = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from fidm_tpu_torch import SAMPLER_PRESETS, InpaintingPipeline, PipelineConfig
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.models import InpaintingUNet, ffhq256_config
+    from fidm_tpu_torch.models.weights import load_adm_checkpoint
+    from fidm_tpu_torch.ops import LAUNCHES, kernel_override
+    from fidm_tpu_torch.parallel import (create_mesh, shard_batch, shard_params,
+                                         tp_shard_params)
+    from fidm_tpu_torch.parallel.collectives import full_params, gather_h, model_group
+    from fidm_tpu_torch.parallel.tp import attach
+    from fidm_tpu_torch.training import TrainState, make_train_step
+    from fidm_tpu_torch.training.train_state import Optimizer
+
+    def say(msg):
+        print(f"[14] rank {rank}: {msg}", flush=True)
+
+    class Recording(Optimizer):
+        """AdamW that keeps the gradients of its first update: the step's
+        gradients reduced into the state's layout, before the clip."""
+
+        def update(self, grads, state, params, *args):
+            if not hasattr(self, "grads"):
+                self.grads = {k: g.detach().clone() for k, g in grads.items()}
+            return super().update(grads, state, params, *args)
+
+    t_rank = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=MODEL_AXIS_RANKS, rank=rank)
+    mesh = create_mesh(data=1, fsdp=1, model=MODEL_AXIS_RANKS)
+    ax = model_group(mesh)
+    say(f"process group {dist.get_backend()} of {dist.get_world_size()} on "
+        f"{torch.cuda.get_device_name(0)}; mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+        f"model index {ax.rank}")
+    cfg16 = ffhq256_config()
+    cfg32 = dataclasses.replace(cfg16, dtype=torch.float32)
+    sd = {k: v.to("cuda") for k, v in load_adm_checkpoint(str(ckpt), cfg16).items()}
+    size, B = cfg16.image_size, MODEL_AXIS_BATCH
+
+    def model_of(cfg):
+        with torch.device("cuda"):  # the random init on the card, then the weights
+            m = InpaintingUNet(cfg)
+        m.load_state_dict(sd, strict=True)
+        return m
+
+    gt, mask = (a[:B] for a in main_inputs(torch, size))
+    keep = mask[..., 0] < 0.5
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    x = torch.randn(gt.shape, device="cuda", generator=g)
+    t = torch.tensor([500, 250], device="cuda", dtype=torch.int32)
+    masked = gt * keep[..., None]
+    lo, hi = ax.rank * size // ax.size, (ax.rank + 1) * size // ax.size
+    bf16_launches = 0
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    # --- forwards: TP and spatial against the unmeshed forward, f32 and bf16
+    for cfg, tol in ((cfg32, UNET_F32_TOL), (cfg16, UNET_BF16_TOL)):
+        kind = "attention.f32" if cfg.dtype == torch.float32 else "attention.bf16"
+        name = str(cfg.dtype).replace("torch.", "")
+        with torch.inference_mode():
+            model = model_of(cfg).eval()
+            ref = model(x, t, masked, mask)
+            LAUNCHES.clear()
+            with attach(model, mesh, "spatial"):
+                out, ev, host = timed(lambda: model(x[:, lo:hi], t, masked[:, lo:hi],
+                                                    mask[:, lo:hi]))
+            n_sp = LAUNCHES[kind]
+            e_sp = rel(gather_h(out, ax, dim=1), ref)
+            say(f"spatial forward B={B} {name}: rows [{lo}, {hi}) of {size}; max abs / max "
+                f"|unmeshed| {e_sp:.4g} (tol {tol}); {n_sp} {kind} launches; {ev:.3f} ms by "
+                f"CUDA events, {host:.3f} ms host ({NOT_SCALING})")
+            check(e_sp <= tol, f"[14] rank {rank}: the spatial {name} forward disagrees")
+            check(n_sp == 4 and LAUNCHES["attention"] == 4,
+                  f"[14] rank {rank}: spatial {name} forward launches {dict(LAUNCHES)}")
+            del model
+            model = model_of(cfg).eval()
+            specs = tp_shard_params(model, mesh)[1]
+            LAUNCHES.clear()
+            with attach(model, mesh, "tp", specs):
+                out, ev, host = timed(lambda: model(x, t, masked, mask))
+                n_tp = LAUNCHES[kind]
+                with kernel_override(False, "attention"):
+                    plain = model(x, t, masked, mask)
+            e_tp, e_kp = rel(out, ref), rel(out, plain)
+            n_split = sum(type(s).__name__ == "ModelShard" for s in specs.values())
+            say(f"TP forward B={B} {name}: {n_split} tensors split; max abs / max |unmeshed| "
+                f"{e_tp:.4g} (tol {tol}); kernel against plain attention under TP {e_kp:.4g} "
+                f"(tol {tol}); {n_tp} {kind} launches (attention at [{B}, "
+                f"{8 // ax.size}, 256 / 64, 64]); {ev:.3f} ms by CUDA events, {host:.3f} ms "
+                f"host ({NOT_SCALING})")
+            check(e_tp <= tol and e_kp <= tol, f"[14] rank {rank}: the TP {name} forward disagrees")
+            check(n_tp == 4 and LAUNCHES[kind] == 4,
+                  f"[14] rank {rank}: TP {name} forward launches {dict(LAUNCHES)}")
+            if kind == "attention.bf16":
+                bf16_launches += n_sp + n_tp
+            del model, ref, out, plain
+        torch.cuda.empty_cache()
+
+    # --- one train step each, float32, against the unmeshed step
+    sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
+    batch = {"image": gt, "masked_image": masked, "mask": mask}
+
+    def train(layout):
+        model = model_of(cfg32)
+        if layout == "tp":
+            params, specs = tp_shard_params(model, mesh)
+        elif layout == "spatial":
+            params, specs = shard_params(model, mesh)
+        else:
+            params, specs = dict(model.named_parameters()), None
+        tx = Recording(lambda c: MODEL_AXIS_LR)
+        state = TrainState.create(model, params, tx, specs=specs)
+        m = None if layout is None else mesh
+        step = make_train_step(sched, mesh=m, spatial=layout == "spatial")
+        part = batch if m is None else shard_batch(batch, m, spatial=layout == "spatial")
+        LAUNCHES.clear()
+        (_, metrics), ev, host = timed(lambda: step(state, part, 7))
+        n = LAUNCHES["attention.f32"]
+
+        def whole(t):
+            return {k: v.detach().clone()
+                    for k, v in (t if m is None else full_params(t, specs, m)).items()}
+
+        return ({k: float(v) for k, v in metrics.items()}, whole(state.params),
+                whole(tx.grads), n, ev, host)
+
+    ref_m, ref_p, ref_g, _, ref_ev, ref_host = train(None)
+    for layout in ("tp", "spatial"):
+        got_m, got_p, got_g, n, ev, host = train(layout)
+        loss_err = abs(got_m["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
+        norm_err = abs(got_m["grad_norm"] - ref_m["grad_norm"]) / ref_m["grad_norm"]
+        p_err = max((got_p[k] - ref_p[k]).abs().max().item() for k in ref_p)
+        # each gradient's error over its bound, 2e-5 of its largest value + 1e-7
+        g_err = {k: (got_g[k] - g).abs().max().item()
+                 / (MODEL_AXIS_GRAD_REL * g.abs().max().item() + MODEL_AXIS_GRAD_FLOOR)
+                 for k, g in ref_g.items()}
+        worst = max(g_err, key=g_err.get)
+        say(f"{layout} train step B={B} float32: loss {got_m['loss']:.7f} against "
+            f"{ref_m['loss']:.7f} unmeshed (relative {loss_err:.3g}, tol "
+            f"{MODEL_AXIS_LOSS_RTOL}); grad_norm {got_m['grad_norm']:.7f} against "
+            f"{ref_m['grad_norm']:.7f} (relative {norm_err:.3g}, tol {MODEL_AXIS_NORM_RTOL}); "
+            f"{len(got_g)} gradients, the worst at {g_err[worst]:.3g} of its bound "
+            f"({MODEL_AXIS_GRAD_REL} of its largest + {MODEL_AXIS_GRAD_FLOOR}; {worst}); "
+            f"{len(got_p)} parameters within {p_err:.3g} (tol {MODEL_AXIS_PARAM_TOL}, lr "
+            f"{MODEL_AXIS_LR}); {n} attention.f32 launches; {ev:.3f} ms by CUDA events, "
+            f"{host:.3f} ms host, unmeshed {ref_ev:.3f} / {ref_host:.3f} ms ({NOT_SCALING})")
+        check(set(got_g) == set(ref_g) and g_err[worst] <= 1.0,
+              f"[14] rank {rank}: the {layout} train step's gradients disagree ({worst})")
+        check(loss_err <= MODEL_AXIS_LOSS_RTOL and norm_err <= MODEL_AXIS_NORM_RTOL
+              and p_err <= MODEL_AXIS_PARAM_TOL,
+              f"[14] rank {rank}: the {layout} train step disagrees with the unmeshed step")
+        check(n == 4, f"[14] rank {rank}: {layout} train step launches {n}")
+        del got_p, got_g
+        torch.cuda.empty_cache()
+    del ref_p, ref_g
+
+    # --- 10-step DDIM through the pipeline, bf16, against the unmeshed call;
+    # then `ddim-100-deep` at 10 steps (its last MODEL_AXIS_CACHE_TAIL full),
+    # the feature cache under both layouts, launching what the unmeshed call does
+    config = PipelineConfig()
+    plain_pipe = InpaintingPipeline(model_of(cfg16).eval().requires_grad_(False), sched, config)
+    pipes = [InpaintingPipeline(model_of(cfg16).eval().requires_grad_(False), sched, config,
+                                mesh=mesh, **kw)
+             for kw in (dict(tp_params=True), dict(shard_spatial=True))]
+    for preset, cfg in (
+            ("ddim", dataclasses.replace(SAMPLER_PRESETS["ddim-100"],
+                                         num_steps=MODEL_AXIS_STEPS)),
+            ("ddim-100-deep", dataclasses.replace(
+                SAMPLER_PRESETS["ddim-100-deep"], num_steps=MODEL_AXIS_STEPS,
+                encoder_cache_tail=MODEL_AXIS_CACHE_TAIL))):
+        LAUNCHES.clear()
+        ref = plain_pipe.inpaint(gt, mask, 0, sampler=cfg)
+        n_ref = LAUNCHES["attention.bf16"]
+        for layout, pipe in zip(("tp_params", "shard_spatial"), pipes):
+            LAUNCHES.clear()
+            out, ev, host = timed(lambda: pipe.inpaint(gt, mask, 0, sampler=cfg))
+            n = LAUNCHES["attention.bf16"]
+            bf16_launches += n
+            hole = (out - ref).abs()[~keep].mean().item()
+            exact = torch.equal(out[keep], gt[keep])
+            say(f"{preset} at {MODEL_AXIS_STEPS} steps through InpaintingPipeline({layout}=True) "
+                f"B={B}: known pixels bit-equal to gt: {exact}; hole mean abs against the "
+                f"unmeshed call {hole:.4g} (tol {IMAGE_MEAN_TOL}); {n} attention.bf16 launches "
+                f"(the unmeshed call {n_ref}); {host / 1e3:.4f} s per call ({NOT_SCALING})")
+            check(exact and bool(torch.isfinite(out).all()),
+                  f"[14] rank {rank}: {preset} {layout}: known pixels or finiteness")
+            check(hole <= IMAGE_MEAN_TOL, f"[14] rank {rank}: {preset} {layout}: images disagree")
+            check(n == n_ref and LAUNCHES["attention"] == n and n > 0,
+                  f"[14] rank {rank}: {preset} {layout}: launches {dict(LAUNCHES)}, unmeshed "
+                  f"{n_ref}")
+            if preset == "ddim":
+                check(n == 4 * (MODEL_AXIS_STEPS + 1),
+                      f"[14] rank {rank}: {layout}: launches {n}")
+            del out
+        del ref
+    del plain_pipe, pipes
+    torch.cuda.empty_cache()
+    with open(Path(workdir) / f"rank{rank}.json", "w") as f:
+        json.dump({"attention.bf16": bf16_launches}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    say(f"all gates held; {time.perf_counter() - t_rank:.1f} s in this rank")
+
+
+def phase_model_axis(torch, ckpt, smi):
+    """Phase 14: the mesh's "model" axis, MODEL_AXIS_RANKS ranks, each a
+    process of its own on the one card (`model_axis_rank`), started together
+    and stopped by the end of the phase. Returns the bf16 attention launches
+    of their kernel-path calls."""
+    import os
+    import socket
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fidm_chip_smoke_model_axis_") as tmp:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        logs = [open(Path(tmp) / f"rank{r}.log", "w+") for r in range(MODEL_AXIS_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--model-axis-rank", str(r), str(port), tmp, str(ckpt)],
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(MODEL_AXIS_RANKS)]
+        try:
+            deadline = time.time() + MODEL_AXIS_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines():
+                if line.startswith(("[14]", "FAIL", "Traceback", "  ")) or "Error" in line:
+                    print(line, flush=True)
+            f.close()
+        codes = [p.returncode for p in procs]
+        check(codes == [0] * MODEL_AXIS_RANKS, f"[14] the ranks exited with {codes}")
+        launches = sum(json.loads((Path(tmp) / f"rank{r}.json").read_text())["attention.bf16"]
+                       for r in range(MODEL_AXIS_RANKS))
+    print(f"[14] model axis: {MODEL_AXIS_RANKS} ranks held TP and spatial forwards, train "
+          f"steps (gradients too) and {MODEL_AXIS_STEPS}-step ddim and ddim-100-deep pipelines "
+          f"to the unmeshed calls; bf16 attention "
+          f"launches {launches}; phase wall {time.perf_counter() - t_phase:.1f} s; {smi}",
+          flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -3660,9 +3966,12 @@ def main():
     # both TF32 switches off
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     parallel_launches = phase_parallel(torch, np, ckpt, n_attn, refs, smi)
+
+    # 14. the mesh's "model" axis: two ranks over gloo on the card
+    model_axis_launches = phase_model_axis(torch, ckpt, smi)
     ckpt_dir.cleanup()
 
-    # 14. the record
+    # 15. the record
     # launches: attention_bf16 in phase 3's DDIM-100 call, phase 9's
     # kernel-path calls (the new methods, guidance, the trajectory, the
     # CLIs), phase 10's (cli.train's train and validation forwards, the
@@ -3670,8 +3979,9 @@ def main():
     # (program replays and their recording runs, the servers, the CLI
     # runs, the forwards) and phase 12's (cli.distill's steps, the CLIs on
     # the students and the export, the kernel-path steps and the target
-    # network's forwards) and phase 13's (the meshed and unmeshed train,
-    # distill and ddim-100 calls, cli.train with and without the group),
+    # network's forwards), phase 13's (the meshed and unmeshed train,
+    # distill and ddim-100 calls, cli.train with and without the group) and
+    # phase 14's (both ranks' TP and spatial forwards and pipelines),
     # attention_f32 in
     # phase 8's `cli.evaluate --dtype f32` run (its user path; phase 4's
     # float32 forward launched it too), quantize in phase 5's absmax CLI run
@@ -3680,7 +3990,7 @@ def main():
                     replaces="fidm_tpu/ops/attention.py:46",
                     launches=launches["attention.bf16"] + sampling_launches
                     + training_launches + program_launches + distill_launches
-                    + parallel_launches,
+                    + parallel_launches + model_axis_launches,
                     **attn_rows[torch.bfloat16]),
                dict(name="attention_f32", route="cuda",
                     source="fidm_tpu_torch/ops/csrc/attention.cu",
@@ -3698,4 +4008,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        model_axis_rank(*sys.argv[2:])
+    else:
+        main()

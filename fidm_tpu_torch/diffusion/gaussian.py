@@ -329,16 +329,17 @@ def mean_flat(tensor):
 def vb_terms_bpd(sched: DiffusionSchedule, model_output, x_start, x_t, t, *,
                  mean_type: ModelMeanType = ModelMeanType.EPSILON,
                  var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
-                 clip_denoised: bool = True):
+                 clip_denoised: bool = True, mean_fn=mean_flat):
     """The variational-bound term in bits per dimension, per sample: the
     decoder NLL at t = 0, the KL to the true posterior elsewhere. Returns
-    (term [B], pred_xstart)."""
+    (term [B], pred_xstart). `mean_fn` takes the mean over the non-batch
+    dims (over the whole image, for a block of its rows)."""
     true_mean, _, true_logvar = q_posterior_mean_variance(sched, x_start, x_t, t)
     out = p_mean_variance(sched, model_output, x_t, t, mean_type=mean_type,
                           var_type=var_type, clip_denoised=clip_denoised)
-    kl = mean_flat(normal_kl(true_mean, true_logvar, out.mean, out.log_variance))
+    kl = mean_fn(normal_kl(true_mean, true_logvar, out.mean, out.log_variance))
     kl = kl / math.log(2.0)
     decoder_nll = -discretized_gaussian_log_likelihood(
         x_start, means=out.mean, log_scales=0.5 * out.log_variance)
-    decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+    decoder_nll = mean_fn(decoder_nll) / math.log(2.0)
     return torch.where(t == 0, decoder_nll, kl), out.pred_xstart

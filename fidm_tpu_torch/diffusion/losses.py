@@ -7,6 +7,11 @@ injection of correctly noised known pixels into x_t, timestep loss weights
 draws its diffusion and injection noise from a key; this one takes both
 tensors from the caller (`training.train_state.TrainDraws` draws them).
 Layout NHWC; mask [B, H, W, 1] with 1 = inpaint (hole), 0 = keep.
+
+Under spatial partitioning (`parallel/tp.py`) a rank holds a block of H
+rows: `spatial`, its model group, sums a per-sample partial sum over the
+blocks (`spatial.sum`), so the masked MSE's sums and hole area, and the VB
+terms' means, are the whole image's before anything is divided.
 """
 from __future__ import annotations
 
@@ -20,15 +25,19 @@ from .schedules import DiffusionSchedule
 __all__ = ["training_losses", "masked_mse", "snr_loss_weight"]
 
 
-def masked_mse(target, prediction, inpaint_mask, sample_weight=None):
+def masked_mse(target, prediction, inpaint_mask, sample_weight=None, spatial=None):
     """Area-normalised MSE over the hole region: per sample and channel, the
     spatial sum of the squared error over the hole divided by the hole's
     area (clamped at 1), then the mean over batch and channels.
-    `sample_weight` ([B], optional) scales each sample's contribution."""
+    `sample_weight` ([B], optional) scales each sample's contribution;
+    `spatial` completes a block's sums (see the module doc)."""
     mask_c = inpaint_mask.expand(target.shape)
     mse = (target - prediction) ** 2 * mask_c
-    mask_area = torch.clamp(mask_c.sum(dim=(1, 2), keepdim=True), min=1.0)
-    per = mse.sum(dim=(1, 2), keepdim=True) / mask_area
+    area, err = mask_c.sum(dim=(1, 2), keepdim=True), mse.sum(dim=(1, 2), keepdim=True)
+    if spatial is not None:
+        area, err = spatial.sum(area), spatial.sum(err)
+    mask_area = torch.clamp(area, min=1.0)
+    per = err / mask_area
     if sample_weight is not None:
         per = per * sample_weight.reshape((-1,) + (1,) * (per.ndim - 1))
     return per.mean()
@@ -85,6 +94,7 @@ def training_losses(
     vb_weight: float = 0.0,
     loss_weight: str = "none",
     loss_weight_gamma: Optional[float] = None,
+    spatial=None,
 ):
     """The inpainting training loss.
 
@@ -101,6 +111,9 @@ def training_losses(
       vb_weight: > 0 adds `vb_weight` times the VLB term, with the mean
         channels detached (the Improved-DDPM hybrid loss).
       loss_weight: "none" | "min_snr" | "p2", on the MSE term only.
+      spatial: under spatial partitioning, the model group whose ranks
+        hold the images' blocks of H rows (`parallel.collectives.ModelGroup`:
+        `sum` completes a partial sum over the blocks, `size` counts them).
 
     Returns a dict with "loss", "mse" (and "vb" when it is computed).
     """
@@ -119,6 +132,13 @@ def training_losses(
             sched, x_t, t, x_start, 1.0 - mask, inject_noise,
             injection_schedule=injection_schedule)
 
+    vb_kw = {}
+    if spatial is not None:
+        def block_mean(x):
+            return spatial.sum(x.sum(dim=tuple(range(1, x.ndim)))) / (x[0].numel() * spatial.size)
+
+        vb_kw["mean_fn"] = block_mean
+
     terms = {}
     if loss_type in (gd.LossType.MSE, gd.LossType.RESCALED_MSE):
         model_output = model_fn(x_t, t, masked_image, mask)
@@ -134,7 +154,8 @@ def training_losses(
                       gd.ModelMeanType.START_X: x_start}[mean_type]
         weight = (snr_loss_weight(sched, t, mean_type, loss_weight, loss_weight_gamma)
                   if loss_weight != "none" else None)
-        terms["mse"] = masked_mse(target, mean_part, mask, sample_weight=weight)
+        terms["mse"] = masked_mse(target, mean_part, mask, sample_weight=weight,
+                                  spatial=spatial)
         if loss_type == gd.LossType.RESCALED_MSE:
             terms["mse"] = terms["mse"] * sched.num_timesteps
         terms["loss"] = terms["mse"]
@@ -143,13 +164,13 @@ def training_losses(
             # hybrid loss: the variance learns through the VLB, the mean does not
             frozen = torch.cat([mean_part.detach(), var_values], dim=-1)
             vb, _ = gd.vb_terms_bpd(sched, frozen, x_start, x_t, t, mean_type=mean_type,
-                                    var_type=var_type, clip_denoised=False)
+                                    var_type=var_type, clip_denoised=False, **vb_kw)
             terms["vb"] = vb.mean()
             terms["loss"] = terms["loss"] + vb_weight * terms["vb"]
     elif loss_type.is_vb():
         model_output = model_fn(x_t, t, masked_image, mask)
         vb, _ = gd.vb_terms_bpd(sched, model_output, x_start, x_t, t, mean_type=mean_type,
-                                var_type=var_type, clip_denoised=False)
+                                var_type=var_type, clip_denoised=False, **vb_kw)
         terms["vb"] = vb.mean()
         if loss_type == gd.LossType.RESCALED_KL:
             terms["vb"] = terms["vb"] * sched.num_timesteps

@@ -38,7 +38,7 @@ from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule
 from ..training.ema import update_ema
 from ..parallel.collectives import full_params, gathered, whole
-from ..training.train_state import _global_means
+from ..training.train_state import _global_means, _refuse_model_axis
 from .progressive import _alpha_sigma, _on_device, _step_inputs, _update, _x0_from
 
 __all__ = [
@@ -125,6 +125,7 @@ def make_consistency_step(
     metrics {loss, grad_norm (before the clip)} as device tensors. `mesh`
     as in `make_distill_step`.
     """
+    _refuse_model_axis(mesh, "distillation")
     bounds_host = consistency_grid(sched.num_timesteps, grid_size)
     cache: Dict = {}
 

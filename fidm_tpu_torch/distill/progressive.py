@@ -35,7 +35,7 @@ from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule
 from ..parallel.collectives import gathered, whole
 from ..training.train_state import (_check_specs, _global_means, _mesh_inputs,
-                                    _reduce_and_apply)
+                                    _reduce_and_apply, _refuse_model_axis)
 
 __all__ = ["distill_boundaries", "make_distill_step", "unet_apply"]
 
@@ -125,6 +125,7 @@ def make_distill_step(
     (see the module doc); the metrics are then global, the same on every
     rank, and in one rank the step is the unmeshed step bit for bit.
     """
+    _refuse_model_axis(mesh, "distillation")
     bounds_host = distill_boundaries(sched.num_timesteps, teacher_steps)
     n_student = teacher_steps // 2
     cache: Dict = {}

@@ -28,6 +28,15 @@ in place of its own (LoRA training merges its factors so, `lora/lora.py`).
 Dropout is off unless a forward passes `deterministic=False`, whatever the
 module's train/eval mode, as in the JAX package, whose train step never
 turns it on.
+
+Under the mesh's "model" axis (`parallel/tp.py`) a layer may hold a context
+in `model_axis` (set by `tp.attach` for a call, absent otherwise): `conv`,
+`linear` and GroupNorm32 then hand the layer to it (a column- or
+row-parallel layer, a norm of this rank's groups, halo rows or statistics
+over the whole image); an AttentionBlock under spatial partitioning gathers
+its normed input and keeps its rows of the output, and a ResBlock builds a
+decoder skip's concatenation. Without a context every module runs exactly
+as it does without a mesh.
 """
 from __future__ import annotations
 
@@ -103,10 +112,14 @@ def weight_overrides(mapping: Dict[nn.Module, torch.Tensor]):
 
 
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`m` applied in the dtype of `x`."""
+    """`m` applied in the dtype of `x` (by its model-axis context, when it
+    holds one)."""
     if _capture is not None:
         _capture(m, x, 1)
     w = _weights.get(m, m.weight)
+    ctx = m.__dict__.get("model_axis")
+    if ctx is not None:
+        return ctx.conv(m, x, w.to(x.dtype), m.bias.to(x.dtype))
     return F.conv2d(x, w.to(x.dtype), m.bias.to(x.dtype), m.stride, m.padding)
 
 
@@ -118,6 +131,9 @@ def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     w = _weights.get(m, m.weight)
     if w.ndim == 3:
         w = w[..., 0]
+    ctx = m.__dict__.get("model_axis")
+    if ctx is not None:
+        return ctx.linear(x, w.to(x.dtype), m.bias.to(x.dtype))
     return F.linear(x, w.to(x.dtype), m.bias.to(x.dtype))
 
 
@@ -142,15 +158,23 @@ def zero_module(m: nn.Module) -> nn.Module:
     return m
 
 
+def group_norm_f32(x, groups: int, weight, bias, eps: float) -> torch.Tensor:
+    """GroupNorm computed in float32, returned in the dtype of `x`."""
+    return F.group_norm(x.float(), groups, weight.float(), bias.float(), eps).to(x.dtype)
+
+
 class GroupNorm32(nn.GroupNorm):
     """GroupNorm(32) computed in float32, returned in the input dtype."""
+
+    model_axis = None
 
     def __init__(self, channels: int):
         super().__init__(32, channels, eps=1e-5)
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        if self.model_axis is not None:
+            return self.model_axis.group_norm(self, x)
+        return group_norm_f32(x, self.num_groups, self.weight, self.bias, self.eps)
 
 
 def _split_groupnorm_silu(a: torch.Tensor, b: torch.Tensor, norm: GroupNorm32):
@@ -225,6 +249,11 @@ class ResBlock(nn.Module):
     """Timestep-conditioned residual block with optional scale-shift norm and
     up/down sampling."""
 
+    # set under the mesh's model axis (`tp.attach`): a decoder skip is then
+    # concatenated (its split path sums statistics and convolutions of one
+    # rank's part only)
+    model_axis = None
+
     def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None,
                  dropout: float = 0.0, use_scale_shift_norm: bool = False,
                  up: bool = False, down: bool = False):
@@ -246,12 +275,13 @@ class ResBlock(nn.Module):
         """With `skip`, the block's function of cat([x, skip]) on the channel
         axis, the concatenation never built where the residual is a 1x1
         convolution (an identity residual needs it anyway); plain blocks
-        only, as in the JAX package."""
+        only, as in the JAX package. Under the model axis the concatenation
+        is built."""
         if skip is not None:
             if self.up or self.down:
                 raise ValueError("split-skip path supports plain blocks only "
                                  "(no up/down)")
-            if isinstance(self.skip_connection, nn.Identity):
+            if self.model_axis is not None or isinstance(self.skip_connection, nn.Identity):
                 x = torch.cat([x, skip], dim=1)
             else:
                 a, b = _split_groupnorm_silu(x, skip, self.in_layers[0])
@@ -282,6 +312,10 @@ class ResBlock(nn.Module):
 class AttentionBlock(nn.Module):
     """Global spatial self-attention with a residual."""
 
+    # set under spatial partitioning (`tp.attach`): the attention then runs
+    # on every rank's rows and keeps this rank's
+    model_axis = None
+
     def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1):
         super().__init__()
         if num_head_channels == -1:
@@ -297,18 +331,25 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x):
         b, c, hh, ww = x.shape
-        s, heads = hh * ww, self.heads
-        tokens = self.norm(x).reshape(b, c, s).transpose(1, 2)  # [B, S, C]
+        ax = self.model_axis
+        h = self.norm(x)
+        if ax is not None:  # every rank's rows
+            h = ax.gather(h)
+        tokens = h.reshape(b, c, -1).transpose(1, 2)  # [B, S, C]
         qkv = linear(self.qkv, tokens)
         # channel split as a 1x1 conv over 3C channels, chunk(3) order: all
-        # of q, then all of k, then all of v; each then splits into heads.
-        # The attention kernel reads these strided views in place (s-stride
-        # 3C, h-stride D), so no copy is made
+        # of q, then all of k, then all of v; each then splits into heads
+        # (this rank's heads of each, under tensor parallelism). The
+        # attention kernel reads these strided views in place (s-stride 3C,
+        # h-stride D), so no copy is made
         q, k, v = qkv.chunk(3, dim=-1)
+        d = c // self.heads
 
         def heads_first(a):
-            return a.reshape(b, s, heads, c // heads).transpose(1, 2)
+            return a.reshape(b, a.shape[1], -1, d).transpose(1, 2)
 
-        out = qkv_attention(heads_first(q), heads_first(k), heads_first(v))
-        out = linear(self.proj_out, out.transpose(1, 2).reshape(b, s, c))
+        out = qkv_attention(heads_first(q), heads_first(k), heads_first(v)).transpose(1, 2)
+        if ax is not None:  # this rank's rows
+            out = ax.own(out, hh * ww)
+        out = linear(self.proj_out, out.reshape(b, hh * ww, -1))
         return x + out.transpose(1, 2).reshape(b, c, hh, ww)

@@ -92,6 +92,9 @@ def _save_convolutions(ctx, op, *args, **kwargs):
 class UNet(nn.Module):
     """The full UNet with attention and timestep embedding."""
 
+    # the model axis's context under spatial partitioning (`parallel/tp.py`)
+    model_axis = None
+
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
@@ -206,6 +209,8 @@ class UNet(nn.Module):
             raise ValueError(
                 f"labels and num_classes must come together: y is "
                 f"{'set' if y is not None else 'None'} but num_classes={cfg.num_classes}")
+        if self.model_axis is not None:
+            self.model_axis.check(self, x)
         dtype = cfg.dtype
         per_level = cfg.num_res_blocks + 1
         deep_cached = cache is not None and cache_depth is not None

@@ -1,6 +1,5 @@
-"""Data-parallel and ZeRO-3 (fsdp) sharding across processes (PyTorch port
-of `fidm_tpu/parallel`, less the tensor-parallel `tp.py`, which is the next
-slice)."""
+"""Data-parallel, ZeRO-3 (fsdp), tensor-parallel and spatial sharding across
+processes (PyTorch port of `fidm_tpu/parallel`)."""
 from .mesh import (
     auto_mesh,
     batch_sharding,
@@ -12,7 +11,9 @@ from .mesh import (
 )
 from .multihost import (barrier, global_batch, host_local_slice, initialize, is_primary,
                         launched_by_env)
+from .tp import spatial_sharding, tp_param_specs, tp_shard_params
 
 __all__ = ["auto_mesh", "batch_sharding", "create_mesh", "fsdp_param_specs", "replicated",
            "shard_batch", "shard_params", "global_batch", "host_local_slice", "initialize",
-           "launched_by_env", "is_primary", "barrier"]
+           "launched_by_env", "is_primary", "barrier", "spatial_sharding", "tp_param_specs",
+           "tp_shard_params"]

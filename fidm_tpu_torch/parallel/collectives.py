@@ -18,25 +18,43 @@ counterpart of the collectives XLA inserts into a meshed JAX program).
 - `global_grad_norm`: the norm of the whole gradient from the shards.
 - `broadcast_object`: the primary's value on every rank.
 - `ShardedModule`: a frozen module kept as shards between calls.
+- The model axis (`parallel/tp.py`): `ModelGroup` (`model_group(mesh)`)
+  is this rank's model group, the process group of the collectives below;
+  `HBlock`, `SpatialDraws` and `SpatialNoise` cut a rank's block of H rows
+  from its rows' draws, as `RowDraws` cuts rows; `copy_to_model` (identity forward, all-reduce
+  backward: before a column-parallel layer), `reduce_from_model`
+  (all-reduce forward, identity backward: after a row-parallel one),
+  `halo_rows` (the neighbours' boundary rows of an H block, zeros at the
+  image's edges; the backward hands each halo's gradient to its owner),
+  `gather_h` (the H blocks joined; the backward all-reduces and keeps this
+  rank's block), `gather_stats` (every rank's GroupNorm statistics; the same
+  backward) and `gather_slices` (a tensor's model-axis slices joined whole
+  for a block that cannot run split; the backward keeps this rank's slice).
+  They use `all_reduce` and `all_gather` only, over the model group.
 
-The collectives are `all_reduce`, `all_gather_into_tensor`,
+The collectives are `all_reduce`, `all_gather(_into_tensor)`,
 `reduce_scatter_tensor` and `broadcast_object_list` (NCCL on CUDA, gloo on
-the CPU).
+the CPU; gloo also carries the model axis's on CUDA tensors).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Shard
 
-from .mesh import axis_size, batch_index
+from .mesh import (ModelShard, axis_size, batch_index, join_slices, local_slice, model_rank,
+                   row_ranks, rows_group)
 
 __all__ = ["Rows", "rank_rows", "RowDraws", "RowNoise", "mean_over_ranks", "gather_rows",
            "gathered", "release", "reduce_gradients", "global_grad_norm",
-           "broadcast_object", "sharded_names", "full_params", "ShardedModule", "whole"]
+           "broadcast_object", "sharded_names", "model_sharded_names", "full_params",
+           "ShardedModule", "whole", "ModelGroup", "model_group", "HBlock", "rank_hblock",
+           "SpatialDraws", "SpatialNoise", "copy_to_model", "reduce_from_model", "halo_rows", "gather_h", "gather_stats",
+           "gather_slices"]
 
 
 class Rows(NamedTuple):
@@ -51,9 +69,10 @@ class Rows(NamedTuple):
 
 
 def rank_rows(mesh, local_batch: int) -> Rows:
-    """This rank's rows when every rank holds `local_batch` of them."""
+    """This rank's rows when every rank holds `local_batch` of them (the
+    ranks of a model group hold the same ones)."""
     i = batch_index(mesh)
-    return Rows(i * local_batch, (i + 1) * local_batch, local_batch * mesh.size())
+    return Rows(i * local_batch, (i + 1) * local_batch, local_batch * row_ranks(mesh))
 
 
 class RowDraws:
@@ -116,6 +135,74 @@ class RowNoise:
         return self.rows.of(self.noise.inject(timestep, self._full(shape)))
 
 
+class HBlock(NamedTuple):
+    """Rows [lo, hi) of the H axis (axis 1 of NHWC) of `total`: a rank's
+    block under spatial partitioning."""
+
+    lo: int
+    hi: int
+    total: int
+
+    def of(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return x.narrow(dim, self.lo, self.hi - self.lo)
+
+
+def rank_hblock(mesh, local_h: int) -> HBlock:
+    """This rank's block of H rows when each holds `local_h` of them."""
+    m = model_rank(mesh)
+    return HBlock(m * local_h, (m + 1) * local_h, local_h * axis_size(mesh, "model"))
+
+
+class SpatialDraws:
+    """A training draws object whose image-shaped draws are made at the
+    whole H and cut to `block` (wrapping `RowDraws`, which cuts the rows)."""
+
+    def __init__(self, draws, block: HBlock):
+        self.draws, self.block = draws, block
+        self.rows = getattr(draws, "rows", None)
+
+    def _full(self, shape):
+        return (shape[0], self.block.total) + tuple(shape[2:])
+
+    def fold(self, index: int) -> "SpatialDraws":
+        return SpatialDraws(self.draws.fold(index), self.block)
+
+    def split(self, n: int) -> List["SpatialDraws"]:
+        return [SpatialDraws(d, self.block) for d in self.draws.split(n)]
+
+    def generator(self, stream: int = 3):
+        return self.draws.generator(stream)
+
+    def timesteps(self, batch: int, num_timesteps: int) -> torch.Tensor:
+        return self.draws.timesteps(batch, num_timesteps)
+
+    def noise(self, shape) -> torch.Tensor:
+        return self.block.of(self.draws.noise(self._full(shape)))
+
+    def inject(self, shape) -> torch.Tensor:
+        return self.block.of(self.draws.inject(self._full(shape)))
+
+
+class SpatialNoise:
+    """A sampler noise source drawn at the whole H and cut to `block`
+    (wrapping `RowNoise`, which cuts the rows)."""
+
+    def __init__(self, noise, block: HBlock):
+        self.noise, self.block = noise, block
+
+    def _full(self, shape):
+        return (shape[0], self.block.total) + tuple(shape[2:])
+
+    def init(self, shape):
+        return self.block.of(self.noise.init(self._full(shape)))
+
+    def step(self, index, shape):
+        return self.block.of(self.noise.step(index, self._full(shape)))
+
+    def inject(self, timestep, shape):
+        return self.block.of(self.noise.inject(timestep, self._full(shape)))
+
+
 def _all_reduce_flat(tensors: List[torch.Tensor], group) -> None:
     """Each tensor summed over `group`, in place, by one all-reduce per
     dtype over their concatenation (one collective, not one per tensor: a
@@ -143,12 +230,13 @@ def mean_over_ranks(tensors: Sequence[torch.Tensor], mesh) -> None:
 
 def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's rows of `x`, in batch order (rank r holds chunk r): the
-    global batch."""
-    W = mesh.size()
+    global batch (over the ranks of this rank's model group, which hold
+    its block of H rows under spatial partitioning)."""
+    W = row_ranks(mesh)
     if W == 1:
         return x
     out = torch.empty((W * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous())
+    dist.all_gather_into_tensor(out, x.contiguous(), group=rows_group(mesh))
     return out
 
 
@@ -202,19 +290,28 @@ def gathered(module: torch.nn.Module, params: Dict[str, torch.Tensor], specs: Op
             release(module, specs)
 
 
+def model_sharded_names(specs: Optional[Dict]) -> List[str]:
+    """The names that `specs` split over the model axis (`ModelShard`)."""
+    return [k for k, s in (specs or {}).items() if isinstance(s, ModelShard)]
+
+
 def reduce_gradients(names: Sequence[str], grads: Sequence[torch.Tensor],
-                     specs: Optional[Dict], mesh) -> List[torch.Tensor]:
+                     specs: Optional[Dict], mesh, spatial: bool = False) -> List[torch.Tensor]:
     """Full per-rank gradients -> the global-batch mean in the state's
     layout: a sharded tensor's gradient reduce-scattered over the fsdp axis
     (its shard), then summed over the data axis; every other gradient summed
-    over all ranks (one all-reduce per dtype); all times 1 / world. Without
-    a mesh, the gradients as they are."""
+    over the ranks that hold other rows (one all-reduce per dtype; a model
+    slice's gradient is this rank's slice already, and a replicated
+    tensor's is the same on every rank of a model group); all times 1 / the
+    number of row chunks. `spatial`: each rank saw only its H block of its
+    rows, so every gradient is also summed over the model axis. Without a
+    mesh, the gradients as they are."""
     if mesh is None:
         return list(grads)
-    W = mesh.size()
+    W = row_ranks(mesh)
     out = list(grads)
     shard = set(sharded_names(specs))
-    _all_reduce_flat([g for k, g in zip(names, out) if k not in shard], None)
+    _all_reduce_flat([g for k, g in zip(names, out) if k not in shard], rows_group(mesh))
     if shard:
         fgroup, n = mesh.get_group("fsdp"), axis_size(mesh, "fsdp")
         idx = [i for i, k in enumerate(names) if k in shard]
@@ -222,6 +319,8 @@ def reduce_gradients(names: Sequence[str], grads: Sequence[torch.Tensor],
             out[i] = _reduce_scatter_dim(out[i], specs[names[i]].dim, fgroup, n)
         if axis_size(mesh, "data") > 1:
             _all_reduce_flat([out[i] for i in idx], mesh.get_group("data"))
+    if spatial:
+        _all_reduce_flat(out, mesh.get_group("model"))
     if W > 1:
         torch._foreach_mul_(out, 1.0 / W)
     return out
@@ -229,19 +328,26 @@ def reduce_gradients(names: Sequence[str], grads: Sequence[torch.Tensor],
 
 def global_grad_norm(names: Sequence[str], grads: Sequence[torch.Tensor],
                      specs: Optional[Dict], mesh) -> torch.Tensor:
-    """The global norm of gradients in the state's layout: the shards'
-    squares summed over the fsdp axis, the replicated ones counted once
-    (without shards, `global_norm` of the gradients)."""
+    """The global norm of gradients in the state's layout: the fsdp shards'
+    squares summed over the fsdp axis, the model slices' over the model
+    axis, the replicated ones counted once (without either, `global_norm` of
+    the gradients)."""
     from ..training.train_state import global_norm
 
-    shard = set(sharded_names(specs))
-    if not shard:
+    shard, model = set(sharded_names(specs)), set(model_sharded_names(specs))
+    if not shard and not model:
         return global_norm(grads)
     sq = lambda ts: torch.stack(torch._foreach_norm(ts)).square().sum()  # noqa: E731
-    s = sq([g for k, g in zip(names, grads) if k in shard])
-    dist.all_reduce(s, group=mesh.get_group("fsdp"))
-    rest = [g for k, g in zip(names, grads) if k not in shard]
-    return torch.sqrt(s + sq(rest)) if rest else torch.sqrt(s)
+    total = []
+    for part, axis in ((shard, "fsdp"), (model, "model")):
+        if part:
+            s = sq([g for k, g in zip(names, grads) if k in part])
+            dist.all_reduce(s, group=mesh.get_group(axis))
+            total.append(s)
+    rest = [g for k, g in zip(names, grads) if k not in shard and k not in model]
+    if rest:
+        total.append(sq(rest))
+    return torch.sqrt(sum(total[1:], total[0]))
 
 
 def broadcast_object(obj, src: int = 0):
@@ -257,26 +363,38 @@ def broadcast_object(obj, src: int = 0):
 def full_params(params: Dict[str, torch.Tensor], specs: Optional[Dict],
                 mesh) -> Dict[str, torch.Tensor]:
     """`params` with every sharded entry all-gathered whole (e.g. an EMA of
-    shards, for a `functional_call`)."""
-    names = sharded_names(specs)
-    if not names:
+    shards, for a `functional_call`): fsdp shards over the fsdp axis, model
+    slices over the model axis (`join_slices`)."""
+    names, model = sharded_names(specs), model_sharded_names(specs)
+    if not names and not model:
         return params
-    group, n = mesh.get_group("fsdp"), axis_size(mesh, "fsdp")
-    return {k: _all_gather_dim(v, specs[k].dim, group, n) if k in names else v
-            for k, v in params.items()}
+    out = dict(params)
+    if names:
+        group, n = mesh.get_group("fsdp"), axis_size(mesh, "fsdp")
+        out.update({k: _all_gather_dim(params[k], specs[k].dim, group, n) for k in names})
+    if model:
+        group, n = mesh.get_group("model"), axis_size(mesh, "model")
+        out.update({k: join_slices(list(_all_gather_stack(params[k].detach(), group, n)),
+                                   specs[k]) for k in model})
+    return out
 
 
 class ShardedModule:
     """A frozen module held as this rank's fsdp shards between calls (the
     teacher of distillation under --fsdp, an eval pipeline's model with
     fsdp_params): `with m.gathered() as module:` gives the whole module.
-    The module's sharded parameters hold empty placeholders outside."""
+    The module's sharded parameters hold empty placeholders outside.
+    `params` and `specs`, when given, are the shards already cut (e.g. by
+    `tp.tp_shard_params`, which fills in fsdp shards beside model slices)."""
 
-    def __init__(self, module: torch.nn.Module, mesh, min_size: int = 2**18):
+    def __init__(self, module: torch.nn.Module, mesh, min_size: int = 2**18,
+                 params: Optional[Dict] = None, specs: Optional[Dict] = None):
         from .mesh import shard_params
 
         self.module, self.mesh = module, mesh
-        self.params, self.specs = shard_params(module, mesh, use_fsdp=True, min_size=min_size)
+        if params is None:
+            params, specs = shard_params(module, mesh, use_fsdp=True, min_size=min_size)
+        self.params, self.specs = params, specs
         release(module, self.specs)
 
     def gathered(self):
@@ -291,3 +409,145 @@ def whole(module):
             yield m
     else:
         yield module
+
+
+# ------------------------------------------------------------ the model axis
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """This rank's model group: its process group, its size and this
+    rank's index in it (the `axis` of the functions below)."""
+
+    group: object
+    size: int
+    rank: int
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A partial sum completed over the group (`reduce_from_model`): a
+        block of H rows' share of a per-sample sum, under spatial
+        partitioning."""
+        return reduce_from_model(t, self)
+
+
+def model_group(mesh) -> ModelGroup:
+    """The model group of this rank of `mesh` (its "model" axis)."""
+    return ModelGroup(mesh.get_group("model"), axis_size(mesh, "model"), model_rank(mesh))
+
+
+def _all_gather_stack(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[n, *t.shape]: every rank's `t` of the group, in group order."""
+    out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+    return out
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x, axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        k, r = axis.size, axis.rank
+        edges = _all_gather_stack(torch.stack([x[:, :, 0], x[:, :, -1]]), axis.group, k)
+        zero = torch.zeros_like(x[:, :, :1])
+        top = edges[r - 1, 1].unsqueeze(2) if r > 0 else zero
+        bottom = edges[r + 1, 0].unsqueeze(2) if r < k - 1 else zero
+        return torch.cat([top, x, bottom], dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        k, r = ctx.axis.size, ctx.axis.rank
+        edges = _all_gather_stack(torch.stack([g[:, :, 0], g[:, :, -1]]), ctx.axis.group, k)
+        gx = g[:, :, 1:-1].clone()
+        if r > 0:  # the rank above took my top row as its bottom halo
+            gx[:, :, 0] += edges[r - 1, 1]
+        if r < k - 1:  # the rank below took my bottom row as its top halo
+            gx[:, :, -1] += edges[r + 1, 0]
+        return gx, None
+
+
+class _GatherStack(torch.autograd.Function):
+    """[k, *x.shape] of every rank's x; the backward sums the gradient over
+    the ranks (each used every block) and keeps this rank's entry."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _all_gather_stack(x, axis.group, axis.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis.group)[ctx.axis.rank], None
+
+
+class _GatherSlices(torch.autograd.Function):
+    """A model slice joined whole (`join_slices`); the backward keeps
+    this rank's slice of the gradient (the whole tensor's use is the same
+    on every rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, spec):
+        ctx.axis, ctx.spec = axis, spec
+        return join_slices(list(_all_gather_stack(x, axis.group, axis.size)), spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, ctx.spec, ctx.axis.size, ctx.axis.rank), None, None
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """x as it is; its gradient summed over the model group (the input of
+    a column-parallel layer, whose ranks each use it for their slice)."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """x summed over the model group (a row-parallel layer's partial
+    outputs); its gradient as it is."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def halo_rows(x: torch.Tensor, axis) -> torch.Tensor:
+    """An NCHW block of H rows with one row above and one below it: the
+    neighbouring ranks' boundary rows, zeros at the image's edges."""
+    return _Halo.apply(x, axis)
+
+
+def gather_h(x: torch.Tensor, axis, dim: int = 2) -> torch.Tensor:
+    """Every rank's block of `x` joined along `dim` (H), in rank order."""
+    return torch.cat(list(_GatherStack.apply(x, axis).unbind(0)), dim=dim)
+
+
+def gather_stats(x: torch.Tensor, axis) -> torch.Tensor:
+    """[k, *x.shape]: every rank's x (statistics of its block)."""
+    return _GatherStack.apply(x, axis)
+
+
+def gather_slices(x: torch.Tensor, axis, spec) -> torch.Tensor:
+    """A tensor's model slices joined whole, on every rank."""
+    return _GatherSlices.apply(x, axis, spec)

@@ -12,11 +12,16 @@ with the dimension names ("data", "fsdp") names the ranks:
     for the forward and reduce-scatters their gradients
     (`parallel/collectives.py`).
 
-The batch is split over both axes, rank r = d * fsdp + f taking chunk r of
-every global batch, as the JAX package's `P(("data", "fsdp"))` splits it.
-The JAX package's third axis, "model" (tensor and spatial parallelism), is
-not in the port yet: `create_mesh(model > 1)` and
-`shard_batch(spatial=True)` raise NotImplementedError.
+  - "model" (only when `create_mesh(model > 1)`, the innermost axis, so rank
+    = (d * fsdp + f) * model + m, as the JAX package's reshape(data, fsdp,
+    model) lays its devices out): Megatron tensor parallelism of the UNet's
+    channels, or spatial partitioning of its images along H
+    (`parallel/tp.py`). The ranks of one model group hold the same rows.
+
+The batch is split over the data and fsdp axes, the ranks at (d, f) taking
+chunk d * fsdp + f of every global batch, as the JAX package's
+`P(("data", "fsdp"))` splits it; `shard_batch(spatial=True)` also gives each
+rank of a model group its block of H rows of every image leaf.
 
 Differences from the JAX package:
   - every rank of the process group must be in the mesh (a rank outside a
@@ -28,10 +33,14 @@ Differences from the JAX package:
     chunk r of every batch);
   - specs and shardings are DTensor placements (`Shard(d)`, `Replicate()`)
     keyed by the ADM parameter name, where the JAX package has
-    `PartitionSpec`s over the Flax tree.
+    `PartitionSpec`s over the Flax tree; a tensor split over the model axis
+    is a `ModelShard(dim, parts)`, whose rank-local slice `local_slice` cuts
+    and `join_slices` joins back (`parallel/tp.py` says why it is not a
+    contiguous chunk).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,11 +59,19 @@ __all__ = [
     "shard_batch",
     "axis_size",
     "batch_index",
+    "row_ranks",
+    "rows_group",
+    "model_rank",
+    "ModelShard",
+    "local_slice",
+    "join_slices",
 ]
 
 AXES = ("data", "fsdp")
-_NEXT_SLICE = ("the 'model' mesh axis (tensor and spatial parallelism, parallel/tp.py) "
-               "is not ported yet; it is the next slice of the port")
+MODEL_AXES = ("data", "fsdp", "model")
+
+# mesh -> the group of the ranks that share its model index (data x fsdp)
+_ROW_GROUPS: Dict = {}
 
 
 def _world() -> int:
@@ -67,25 +84,33 @@ def _world() -> int:
 
 def create_mesh(data: Optional[int] = None, fsdp: int = 1,
                 devices: Optional[Sequence[int]] = None, model: int = 1) -> DeviceMesh:
-    """A (data, fsdp) mesh over the ranks of the process group, in rank
-    order (`devices`, when given, must be those ranks). `data=None` takes
-    every rank the fsdp axis leaves. The fsdp ranks of one data index are
-    adjacent, so the parameter gathers run between neighbours."""
-    if model > 1:
-        raise NotImplementedError(f"create_mesh(model={model}): {_NEXT_SLICE}")
+    """A (data, fsdp[, model]) mesh over the ranks of the process group, in
+    rank order (`devices`, when given, must be those ranks). `data=None`
+    takes every rank the other axes leave. The model ranks of one (data,
+    fsdp) index are adjacent, then the fsdp ranks, so the chattiest
+    collectives run between neighbours. The "model" axis exists only when
+    model > 1, so two-axis meshes stay as they are."""
     world = _world()
     ranks = list(range(world)) if devices is None else [int(r) for r in devices]
     n = len(ranks)
     if data is None:
-        data = n // fsdp
-    if data * fsdp != n:
-        raise ValueError(f"mesh {data}x{fsdp} != {n} devices")
+        data = n // (fsdp * model)
+    if data * fsdp * model != n:
+        shape = f"{data}x{fsdp}" + (f"x{model}" if model > 1 else "")
+        raise ValueError(f"mesh {shape} != {n} devices")
     if ranks != list(range(world)):
         raise ValueError(f"the mesh must hold every rank of the process group in rank "
                          f"order ({world} ranks), got {ranks}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.tensor(ranks).reshape(data, fsdp),
-                      mesh_dim_names=AXES)
+    if model <= 1:
+        return DeviceMesh(device_type, torch.tensor(ranks).reshape(data, fsdp),
+                          mesh_dim_names=AXES)
+    mesh = DeviceMesh(device_type, torch.tensor(ranks).reshape(data, fsdp, model),
+                      mesh_dim_names=MODEL_AXES)
+    # every rank makes every group, in the same order
+    groups = [dist.new_group(list(range(m, n, model))) for m in range(model)]
+    _ROW_GROUPS[mesh] = groups[dist.get_rank() % model]
+    return mesh
 
 
 def auto_mesh(batch_size: int, fsdp: int = 1,
@@ -116,19 +141,37 @@ def axis_size(mesh, name: str) -> int:
 
 def batch_index(mesh: DeviceMesh) -> int:
     """This rank's chunk of every global batch: d * fsdp + f at mesh
-    coordinate (d, f), which is its rank."""
-    d, f = mesh.get_coordinate()
+    coordinate (d, f[, m]) (its rank without a model axis)."""
+    d, f = mesh.get_coordinate()[:2]
     return d * axis_size(mesh, "fsdp") + f
+
+
+def row_ranks(mesh) -> int:
+    """The number of chunks a global batch splits into: data x fsdp (the
+    ranks of one model group hold the same rows)."""
+    return axis_size(mesh, "data") * axis_size(mesh, "fsdp")
+
+
+def rows_group(mesh):
+    """The process group of the ranks that share this rank's model index
+    (the data x fsdp ranks, over which rows are split and gradients
+    summed): None, the whole group, for a mesh without a model axis."""
+    return _ROW_GROUPS[mesh] if axis_size(mesh, "model") > 1 else None
+
+
+def model_rank(mesh) -> int:
+    """This rank's index on the model axis (0 without one)."""
+    return mesh.get_coordinate()[2] if axis_size(mesh, "model") > 1 else 0
 
 
 def batch_sharding(mesh) -> Tuple:
     """The batch dimension split over the data and fsdp axes, as DTensor
-    placements over the mesh."""
-    return (Shard(0), Shard(0))
+    placements over the mesh (replicated over the model axis)."""
+    return (Shard(0), Shard(0)) + (Replicate(),) * (len(mesh.mesh_dim_names) - 2)
 
 
 def replicated(mesh) -> Tuple:
-    return (Replicate(), Replicate())
+    return (Replicate(),) * len(mesh.mesh_dim_names)
 
 
 def _jax_axes(name: str, t: torch.Tensor) -> Tuple[int, ...]:
@@ -188,19 +231,51 @@ def shard_params(params, mesh, use_fsdp: bool = False,
     if not use_fsdp:
         return dict(params), {k: Replicate() for k in params}
     specs = fsdp_param_specs(params, mesh, min_size)
-    n, i = axis_size(mesh, "fsdp"), fsdp_rank(mesh)
-    out = {k: (t.detach().chunk(n, specs[k].dim)[i].clone() if isinstance(specs[k], Shard)
-               else t) for k, t in params.items()}
+    out = {k: fsdp_shard(t, specs[k].dim, mesh) if isinstance(specs[k], Shard) else t
+           for k, t in params.items()}
     return out, specs
+
+
+def fsdp_shard(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's fsdp shard of the whole tensor `t` along `dim` (a copy)."""
+    return t.detach().chunk(axis_size(mesh, "fsdp"), dim)[fsdp_rank(mesh)].clone()
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """A tensor split over the model axis along torch axis `dim`: that axis
+    is `parts` equal runs (q | k | v, scale | shift, or one) and a rank
+    holds its 1/k of each run."""
+
+    dim: int
+    parts: int = 1
+
+
+def local_slice(t: torch.Tensor, spec: ModelShard, k: int, i: int) -> torch.Tensor:
+    """Rank i's slice of the whole tensor `t` (a view)."""
+    n = t.shape[spec.dim] // spec.parts
+    runs = t.unflatten(spec.dim, (spec.parts, n))
+    return runs.narrow(spec.dim + 1, i * (n // k), n // k).flatten(spec.dim, spec.dim + 1)
+
+
+def join_slices(slices, spec: ModelShard) -> torch.Tensor:
+    """The whole tensor from every rank's slice, in rank order: the inverse
+    of `local_slice`."""
+    runs = [s.unflatten(spec.dim, (spec.parts, s.shape[spec.dim] // spec.parts))
+            for s in slices]
+    return torch.cat(runs, dim=spec.dim + 1).flatten(spec.dim, spec.dim + 1)
 
 
 def shard_batch(batch, mesh, spatial: bool = False, spatial_axis: str = "model"):
     """This rank's rows of a host batch that every rank holds whole (a dict
     of arrays or tensors, or one array): chunk `batch_index(mesh)` of the
-    batch dimension. `spatial=True` is the next slice's."""
-    if spatial:
-        raise NotImplementedError(f"shard_batch(spatial=True): {_NEXT_SLICE}")
-    W, r = mesh.size(), batch_index(mesh)
+    batch dimension. With `spatial=True` (and a `spatial_axis` of more than
+    one rank) an image-like leaf (ndim >= 4, NHWC) whose H divides by that
+    axis's size also keeps only block `model_rank(mesh)` of its H rows; every
+    other leaf keeps its rows only, as in the JAX package."""
+    W, r = row_ranks(mesh), batch_index(mesh)
+    n = axis_size(mesh, spatial_axis) if spatial else 1
+    m = mesh.get_coordinate()[list(mesh.mesh_dim_names).index(spatial_axis)] if n > 1 else 0
 
     def rows(x):
         if not hasattr(x, "shape") or len(x.shape) == 0:
@@ -208,7 +283,11 @@ def shard_batch(batch, mesh, spatial: bool = False, spatial_axis: str = "model")
         b = x.shape[0]
         if b % W:
             raise ValueError(f"batch {b} does not divide over the {W} ranks of the mesh")
-        return x[r * (b // W): (r + 1) * (b // W)]
+        x = x[r * (b // W): (r + 1) * (b // W)]
+        if n > 1 and len(x.shape) >= 4 and x.shape[1] % n == 0:
+            h = x.shape[1] // n
+            x = x[:, m * h:(m + 1) * h]
+        return x
 
     if isinstance(batch, dict):
         return {k: rows(v) for k, v in batch.items()}

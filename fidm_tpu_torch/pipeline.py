@@ -24,10 +24,18 @@ shards between calls (ZeRO-3), gathered for each call. A meshed pipeline runs
 eagerly: `compile_batch` refuses it, because a program's noise buffers hold
 the draws of its own batch, not a rank's rows of a larger one, and the
 program cache (`serving/aot.py`) refuses it as the JAX package's does.
-`tp_params` and `shard_spatial` (the mesh's "model" axis) are the next slice.
+
+Over the mesh's "model" axis (`parallel/tp.py`): `tp_params` keeps this
+rank's Megatron slices of the model (with `fsdp_params`, fsdp shards of the
+rest) and the ranks of a model group run their slices of the same rows with
+those rows' noise; `shard_spatial` keeps the model whole and gives each rank
+of a model group its block of H rows of those rows, with that block of
+their noise. Either way every rank returns the whole batch, and the known
+pixels are exactly `gt`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Sequence, Union
 
@@ -151,15 +159,25 @@ class InpaintingPipeline:
                 "tp_params and shard_spatial both use the mesh's 'model' "
                 "axis — pick one latency-scaling layout")
         if tp_params or shard_spatial:
-            from .parallel.mesh import _NEXT_SLICE, axis_size
+            from .parallel.mesh import axis_size
 
             if mesh is None or axis_size(mesh, "model") <= 1:
                 raise ValueError(
                     "tp_params/shard_spatial need a mesh with a 'model' axis "
                     "(parallel.create_mesh(model=k))")
-            raise NotImplementedError(f"tp_params/shard_spatial: {_NEXT_SLICE}")
+        self.shard_spatial = shard_spatial
         self._sharded = None
-        if mesh is not None and fsdp_params:
+        # the model's placements over the model axis (tp_params), else None
+        self._tp_specs = None
+        if mesh is not None and tp_params:
+            from .parallel.collectives import ShardedModule, sharded_names
+            from .parallel.tp import tp_shard_params
+
+            params, self._tp_specs = tp_shard_params(
+                model, mesh, fsdp_min_size=fsdp_min_size if fsdp_params else None)
+            if sharded_names(self._tp_specs):
+                self._sharded = ShardedModule(model, mesh, params=params, specs=self._tp_specs)
+        elif mesh is not None and fsdp_params:
             from .parallel.collectives import ShardedModule
 
             self._sharded = ShardedModule(model, mesh, fsdp_min_size)
@@ -294,26 +312,56 @@ class InpaintingPipeline:
                                   cond_fn=cond_fn)
 
     def _inpaint_meshed(self, gt, mask, noise, cfg, cond_fn):
-        """This rank's rows of the whole batch, their noise cut from the
-        whole batch's draws, then every rank's rows gathered."""
-        from .parallel.collectives import Rows, RowNoise, gather_rows, whole
-        from .parallel.mesh import batch_index
+        """This rank's rows of the whole batch (under shard_spatial its block
+        of their H rows), their noise cut from the whole batch's draws, then
+        every rank's part gathered."""
+        from .parallel.collectives import (HBlock, Rows, RowNoise, SpatialNoise, gather_h,
+                                           gather_rows, whole)
+        from .parallel.mesh import batch_index, row_ranks
 
-        B, W = gt.shape[0], self.mesh.size()
+        B, W = gt.shape[0], row_ranks(self.mesh)
         if B % W:
             raise ValueError(f"batch {B} does not divide over the {W} ranks of the mesh")
         b, i = B // W, batch_index(self.mesh)
         rows = Rows(i * b, (i + 1) * b, B)
+        gt, mask, noise = rows.of(gt), rows.of(mask), RowNoise(noise, rows)
+        if self.shard_spatial:
+            from .parallel.collectives import model_group
+            from .parallel.tp import check_spatial
+
+            if cond_fn is not None:
+                raise NotImplementedError(
+                    "cond_fn under shard_spatial (it would see one block of rows): a later "
+                    "slice of the port")
+            ax, H = model_group(self.mesh), gt.shape[1]
+            check_spatial(H, ax.size, len(self.config.unet.channel_mult))
+            block = HBlock(ax.rank * H // ax.size, (ax.rank + 1) * H // ax.size, H)
+            gt, mask, noise = block.of(gt), block.of(mask), SpatialNoise(noise, block)
         with torch.no_grad() if cond_fn is not None else torch.inference_mode(), \
-                whole(self._sharded if self._sharded is not None else self.model):
-            out = inpaint_sample(self._apply, self.sched, cfg, gt=rows.of(gt),
-                                 mask=rows.of(mask), noise=RowNoise(noise, rows),
-                                 cache_apply=self._cache_apply(cfg), cond_fn=cond_fn)
-            if isinstance(out, tuple):  # (images, frames): the frames' batch is axis 1
-                images, frames = out
-                return (gather_rows(images, self.mesh),
-                        gather_rows(frames.transpose(0, 1), self.mesh).transpose(0, 1))
-            return gather_rows(out, self.mesh)
+                whole(self._sharded if self._sharded is not None else self.model) as model:
+            with self._model_axis(model):
+                out = inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
+                                     noise=noise, cache_apply=self._cache_apply(cfg),
+                                     cond_fn=cond_fn)
+            images, frames = out if isinstance(out, tuple) else (out, None)
+            if self.shard_spatial:  # the blocks of H rows: axis 1, or 2 of the frames
+                images = gather_h(images, ax, dim=1)
+                frames = None if frames is None else gather_h(frames, ax, dim=2)
+            images = gather_rows(images, self.mesh)
+            if frames is None:
+                return images
+            # (images, frames): the frames' batch is axis 1
+            return images, gather_rows(frames.transpose(0, 1), self.mesh).transpose(0, 1)
+
+    def _model_axis(self, model):
+        """The model-axis context of a meshed call (`tp.attach`), or none."""
+        from .parallel.tp import attach
+
+        if self.shard_spatial:
+            return attach(model, self.mesh, "spatial")
+        if self._tp_specs is not None:
+            return attach(model, self.mesh, "tp", self._tp_specs)
+        return contextlib.nullcontext()
 
     def example_inputs(self, batch: int, batched_key: bool = False):
         """(gt, mask, seed) for a batch-`batch` program: float32 zeros

@@ -242,11 +242,23 @@ class CheckpointManager:
             raise ValueError("a state of fsdp shards needs CheckpointManager(..., mesh=)")
         return {k: specs[k].dim for k in names}
 
+    def _model_slices(self, state) -> Dict:
+        """{name: ModelShard} of the state's model-axis slices ({} if none)."""
+        from ..parallel.collectives import model_sharded_names
+
+        specs = getattr(state, "specs", None)
+        names = model_sharded_names(specs)
+        if names and self.mesh is None:
+            raise ValueError("a state of model-axis slices needs CheckpointManager(..., mesh=)")
+        return {k: specs[k] for k in names}
+
     def _fsdp(self):
-        from ..parallel.mesh import axis_size, fsdp_rank
+        """(fsdp index, fsdp size, whether this rank writes its fsdp shard:
+        data index 0 and model index 0)."""
+        from ..parallel.mesh import axis_size, fsdp_rank, model_rank
 
         return fsdp_rank(self.mesh), axis_size(self.mesh, "fsdp"), \
-            self.mesh.get_coordinate()[0]
+            self.mesh.get_coordinate()[0] == 0 and model_rank(self.mesh) == 0
 
     def _write_collective(self, path: str, tree, meta: Optional[dict], dims: Dict[str, int]):
         """Every rank's part of one checkpoint directory: `path.tmp` made by
@@ -258,8 +270,8 @@ class CheckpointManager:
             os.makedirs(tmp)
         barrier("fidm-ckpt-mkdir")
         if dims:
-            i, k, d = self._fsdp()
-            if d == 0:
+            i, k, writer = self._fsdp()
+            if writer:
                 torch.save(tree, os.path.join(tmp, _shard_file(i, k)))
         elif is_primary():
             torch.save(tree, os.path.join(tmp, _STATE))
@@ -295,7 +307,14 @@ class CheckpointManager:
             if is_primary():
                 self._begin_overwrite(step)
             barrier("fidm-ckpt-overwrite")
-        tree = _host_copy(state.state_dict() if hasattr(state, "state_dict") else state)
+        tree = state.state_dict() if hasattr(state, "state_dict") else state
+        slices = self._model_slices(state)
+        if slices:  # every rank joins the model axis's slices (collective)
+            from ..parallel.collectives import full_params
+
+            tree = _map_tree(tree, slices, lambda sec, name, t: full_params(
+                {name: t}, {name: slices[name]}, self.mesh)[name])
+        tree = _host_copy(tree)
         if self._multi or dims:
             self._write_collective(os.path.join(self._steps_root, str(step)), tree, meta, dims)
             if is_primary():
@@ -347,7 +366,18 @@ class CheckpointManager:
     def _load_for(self, path: str, state):
         """The checkpoint at `path` in the layout of `state`: this rank's own
         shard file when the layouts agree, else the whole state joined and
-        cut to this rank's shards."""
+        cut to this rank's shards; model-axis slices cut from the whole."""
+        tree = self._load_fsdp(path, state)
+        slices = self._model_slices(state) if state is not None else {}
+        if not slices:
+            return tree
+        from ..parallel.mesh import axis_size, local_slice, model_rank
+
+        k, i = axis_size(self.mesh, "model"), model_rank(self.mesh)
+        return _map_tree(tree, slices,
+                         lambda sec, name, t: local_slice(t, slices[name], k, i).clone())
+
+    def _load_fsdp(self, path: str, state):
         dims = self._shards(state) if state is not None else {}
         info = _layout(path)
         if dims and info is not None and info["dims"] == dims \

@@ -212,7 +212,9 @@ def fit(state, train_step, eval_step, train_loader, val_loader, draws, cfg: FitC
     train loss is this rank's mean of the global step losses, so the same
     on every rank."""
     from ..parallel.multihost import process_count
+    from .train_state import _refuse_model_axis
 
+    _refuse_model_axis(mesh, "fit")
     draws = _as_draws(draws, _state_device(state))
     if mesh is not None and process_count() > 1:
         for ld in (train_loader, val_loader):

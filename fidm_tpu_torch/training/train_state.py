@@ -37,9 +37,18 @@ waits for the card (the loop reads them once per epoch).
   their moments as this rank's shards: the step gathers them into the model
   for the forward and backward, reduce-scatters their gradients, and leaves
   an empty placeholder in the model between steps (ZeRO-3).
+- A mesh with a "model" axis (`parallel/tp.py`): a state from
+  `parallel.tp_shard_params(model, mesh)` holds this rank's Megatron slices
+  (the model computes its part of each block, the ranks of a model group
+  take the same rows and draws, and a slice's gradient and moments stay this
+  rank's); `make_train_step(spatial=True)` with a replicated state trains on
+  this rank's block of H rows of its rows (`parallel.shard_batch(...,
+  spatial=True)`), its draws that block of its rows' draws, the loss's sums
+  completed over the axis, and every gradient summed over it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -51,6 +60,7 @@ from ..diffusion import gaussian as gd
 from ..diffusion.losses import training_losses
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.layers import weight_overrides
+from ..parallel.mesh import row_ranks
 
 __all__ = ["TrainDraws", "TrainState", "Optimizer", "make_optimizer", "global_norm",
            "clip_by_global_norm", "make_train_step", "make_eval_step"]
@@ -276,7 +286,7 @@ def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
 def _loss_for_batch(model, sched: DiffusionSchedule, batch, draws, *, loss_type, var_type,
                     mean_type, use_injection, injection_schedule, vb_weight,
                     loss_weight="none", loss_weight_gamma=None, label_dropout=0.0,
-                    null_label=None, use_labels=True):
+                    null_label=None, use_labels=True, spatial=None):
     d = draws.fold(0)
     image = batch["image"]
     t = d.timesteps(image.shape[0], sched.num_timesteps)
@@ -313,44 +323,85 @@ def _loss_for_batch(model, sched: DiffusionSchedule, batch, draws, *, loss_type,
         mask=batch["mask"], masked_image=masked_image, loss_type=loss_type,
         var_type=var_type, mean_type=mean_type, use_injection=use_injection,
         injection_schedule=injection_schedule, vb_weight=vb_weight,
-        loss_weight=loss_weight, loss_weight_gamma=loss_weight_gamma)
+        loss_weight=loss_weight, loss_weight_gamma=loss_weight_gamma,
+        spatial=spatial)
     return terms["loss"], terms
 
 
-def _mesh_inputs(state, batch, draws, mesh):
+def _mesh_inputs(state, batch, draws, mesh, spatial: bool = False):
     """The step's batch on the state's device and its draws; under a mesh
-    the draws are this rank's rows of the global batch's."""
+    the draws are this rank's rows of the global batch's (and, `spatial`,
+    this rank's block of H rows of them)."""
     device = next(iter(state.params.values())).device
     batch = _device_batch(batch, device)
     draws = _as_draws(draws, device)
     if mesh is not None:
-        from ..parallel.collectives import RowDraws, rank_rows
+        from ..parallel.collectives import RowDraws, SpatialDraws, rank_hblock, rank_rows
 
         draws = RowDraws(draws, rank_rows(mesh, batch["image"].shape[0]))
+        if spatial:
+            draws = SpatialDraws(draws, rank_hblock(mesh, batch["image"].shape[1]))
     return device, batch, draws
 
 
 def _check_specs(state, mesh):
-    """The state's sharded names (none without a mesh, where a sharded state
-    is an error)."""
-    from ..parallel.collectives import sharded_names
+    """The state's fsdp-sharded names (none without a mesh, where a sharded
+    state is an error); a state of model slices must be its model's own."""
+    from ..parallel.collectives import model_sharded_names, sharded_names
 
     names = sharded_names(state.specs)
     if names and mesh is None:
         raise ValueError("the state holds fsdp shards (specs from parallel.shard_params): "
                          "build the step with mesh=")
+    model = model_sharded_names(state.specs)
+    if model:
+        if mesh is None:
+            raise ValueError("the state holds model-axis slices (specs from "
+                             "parallel.tp_shard_params): build the step with mesh=")
+        own = dict(state.model.named_parameters())
+        if any(own[k].shape != state.params[k].shape for k in model):
+            raise ValueError("the state's model-axis slices are not its model's parameters: "
+                             "build the state from parallel.tp_shard_params(model, mesh)")
     return names
 
 
+def _model_axis(state, mesh, spatial: bool):
+    """The model-axis context of a step's forward and backward (`tp.attach`,
+    or nothing): "tp" for a state of model slices, "spatial" for spatial=True."""
+    from ..parallel.collectives import model_sharded_names
+
+    tp = bool(model_sharded_names(state.specs))
+    if mesh is None or not (tp or spatial):
+        return contextlib.nullcontext()
+    from ..parallel.mesh import axis_size
+    from ..parallel.tp import attach
+
+    if axis_size(mesh, "model") <= 1:
+        raise ValueError("a state of model-axis slices needs a mesh with a 'model' axis")
+    if tp and spatial:
+        raise ValueError("a state of model-axis slices and spatial=True both use the "
+                         "mesh's 'model' axis: pick one latency-scaling layout")
+    return attach(state.model, mesh, "spatial" if spatial else "tp", state.specs)
+
+
+def _refuse_model_axis(mesh, what: str) -> None:
+    from ..parallel.mesh import axis_size
+
+    if mesh is not None and axis_size(mesh, "model") > 1:
+        raise NotImplementedError(
+            f"{what} under the mesh's 'model' axis is not ported yet; it is a later slice "
+            "of the port")
+
+
 def _reduce_and_apply(state: TrainState, names: List[str], grads: List[torch.Tensor],
-                      mesh) -> torch.Tensor:
+                      mesh, spatial: bool = False) -> torch.Tensor:
     """A step's gradients (one per name of `state.params`) averaged over the
     ranks into the state's layout (as they are without a mesh), then one
     optimizer update; returns the global norm of all of them before the
     clip, the step's `grad_norm`."""
     from ..parallel.collectives import global_grad_norm, reduce_gradients
 
-    grads = reduce_gradients(names, grads, state.specs, mesh)
+    grads = reduce_gradients(names, grads, state.specs, mesh, spatial)
     grad_norm = global_grad_norm(names, grads, state.specs, mesh)
     state.apply_gradients(dict(zip(names, grads)), mesh)
     return grad_norm
@@ -411,18 +462,27 @@ def make_train_step(
     rows of global microbatch i; the gradients are averaged over the ranks
     before the clip; fsdp-sharded tensors of the state are gathered for the
     forward and their gradients reduce-scattered. In one rank the step is
-    the unmeshed step bit for bit. `spatial=True` is the next slice's.
+    the unmeshed step bit for bit. Over a "model" axis, a state from
+    `parallel.tp_shard_params` trains tensor-parallel, and `spatial=True`
+    (with a replicated state and a `shard_batch(..., spatial=True)` batch)
+    trains on this rank's block of H rows (see the module doc); LoRA
+    (`param_transform`) there is a later slice.
 
     Metrics, as device tensors (global means under a mesh): loss, mse,
     grad_norm (before the clip), mask_coverage, and vb when the loss has it."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     if spatial:
+        from ..parallel.mesh import axis_size
+
         if mesh is None:
             raise ValueError("spatial=True requires a mesh")
-        from ..parallel.mesh import _NEXT_SLICE
-
-        raise NotImplementedError(f"make_train_step(spatial=True): {_NEXT_SLICE}")
+        if axis_size(mesh, "model") <= 1:
+            raise ValueError(
+                f"spatial=True needs a 'model' mesh axis > 1; mesh is "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    if param_transform is not None:
+        _refuse_model_axis(mesh, "LoRA (param_transform)")
     loss_kw = dict(loss_type=loss_type, var_type=var_type, mean_type=mean_type,
                    use_injection=use_injection, injection_schedule=injection_schedule,
                    vb_weight=vb_weight, loss_weight=loss_weight,
@@ -434,7 +494,7 @@ def make_train_step(
         B = batch["image"].shape[0]
         if B % accum_steps:
             raise ValueError(f"batch {B} not divisible by accum_steps {accum_steps}")
-        if mesh is None or mesh.size() == 1:
+        if mesh is None or row_ranks(mesh) == 1:
             micro = {k: v.reshape((accum_steps, B // accum_steps) + tuple(v.shape[1:]))
                      for k, v in batch.items()}
             return [{k: v[i] for k, v in micro.items()} for i in range(accum_steps)]
@@ -449,18 +509,20 @@ def make_train_step(
                 for i in range(accum_steps)]
 
     def step(state: TrainState, batch, draws):
-        from ..parallel.collectives import gathered
+        from ..parallel.collectives import gathered, model_group
 
+        spatial_group = model_group(mesh) if spatial else None
         sharded = set(_check_specs(state, mesh))
         if sharded and param_transform is not None:
             raise ValueError("fsdp-sharded trained tensors with param_transform: shard "
                              "only the model's own parameters")
-        device, batch, draws = _mesh_inputs(state, batch, draws, mesh)
+        device, batch, draws = _mesh_inputs(state, batch, draws, mesh, spatial)
         draws = draws.fold(state.step)
         state.model.train()
         names = list(state.params)
 
-        with gathered(state.model, state.params, state.specs, mesh):
+        with gathered(state.model, state.params, state.specs, mesh), \
+                _model_axis(state, mesh, spatial):
             model_params = dict(state.model.named_parameters()) if sharded else {}
             leaves = [model_params[k] if k in sharded else state.params[k] for k in names]
 
@@ -468,7 +530,8 @@ def make_train_step(
                 overrides = (param_transform(state.params) if param_transform is not None
                              else {})
                 with weight_overrides(overrides):
-                    loss, terms = _loss_for_batch(state.model, sched, mb, d, **loss_kw)
+                    loss, terms = _loss_for_batch(state.model, sched, mb, d,
+                                                  spatial=spatial_group, **loss_kw)
                     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
                 return loss.detach(), {k: v.detach() for k, v in terms.items()}, grads
@@ -489,7 +552,7 @@ def make_train_step(
                 torch._foreach_mul_(grads, inv)
                 loss = loss * inv
                 terms = {k: v * inv for k, v in terms.items()}
-        grad_norm = _reduce_and_apply(state, names, grads, mesh)
+        grad_norm = _reduce_and_apply(state, names, grads, mesh, spatial)
         if ema_decay is not None and state.ema_params is not None:
             from .ema import update_ema
 
@@ -528,7 +591,9 @@ def make_eval_step(
     without gradients, with `draws` used as given (no update count folded
     in). Under `mesh` the batch and the draws are this rank's rows, as in
     `make_train_step`, and the losses are the global means, the same on
-    every rank."""
+    every rank; a state of model-axis slices runs tensor-parallel."""
+    if param_transform is not None:
+        _refuse_model_axis(mesh, "LoRA (param_transform)")
 
     @torch.no_grad()
     def step(state: TrainState, batch, draws):
@@ -538,7 +603,7 @@ def make_eval_step(
         device, batch, draws = _mesh_inputs(state, batch, draws, mesh)
         overrides = param_transform(state.params) if param_transform is not None else {}
         with gathered(state.model, state.params, state.specs, mesh), \
-                weight_overrides(overrides):
+                _model_axis(state, mesh, False), weight_overrides(overrides):
             loss, terms = _loss_for_batch(
                 state.model, sched, batch, draws,
                 loss_type=loss_type, var_type=var_type, mean_type=mean_type,

@@ -674,3 +674,112 @@ def test_native_normalize_matches_numpy_on_card_inputs(cuda):
     ref = torch.from_numpy(u8).to(cuda).float() / 255.0 * 2.0 - 1.0
     assert (image - ref).abs().max().item() <= float(np.spacing(np.float32(1.0)))
     assert torch.equal(masked, image * (1.0 - torch.from_numpy(masks).to(cuda)))
+
+
+def _model_axis_rank(rank, port, mode, out_dir):
+    """One of two gloo ranks on the card (NCCL refuses two ranks on one
+    device): a TP or spatial forward and train step of a small bf16 model
+    with 64-wide heads, against the unmeshed calls on the same card."""
+    import torch.distributed as dist
+
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.models import InpaintingUNet
+    from fidm_tpu_torch.parallel import create_mesh, shard_batch, shard_params, tp_shard_params
+    from fidm_tpu_torch.parallel.collectives import full_params, gather_h, model_group
+    from fidm_tpu_torch.parallel.tp import attach
+    from fidm_tpu_torch.training import TrainState, make_train_step
+    from fidm_tpu_torch.training.train_state import Optimizer
+
+    class Recording(Optimizer):  # keeps the reduced gradients of its first update
+        def update(self, grads, state, params, *args):
+            if not hasattr(self, "grads"):
+                self.grads = {k: g.detach().clone() for k, g in grads.items()}
+            return super().update(grads, state, params, *args)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    mesh = create_mesh(model=2)
+    ax = model_group(mesh)
+    cfg = UNetConfig(image_size=32, in_channels=9, model_channels=64, out_channels=6,
+                     num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                     num_heads=2, num_head_channels=64, dtype=torch.float32)
+
+    def model():
+        torch.manual_seed(0)
+        m = InpaintingUNet(cfg)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.add_(0.05 * torch.randn_like(p))
+        return m.to("cuda")
+
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy((0.5 * rng.standard_normal((2, 32, 32, 3))).astype(np.float32))
+    mask = torch.zeros(2, 32, 32, 1)
+    mask[:, 8:24, 4:20] = 1.0
+    batch = {k: v.cuda() for k, v in
+             {"image": img, "masked_image": img * (1 - mask), "mask": mask}.items()}
+    t = torch.tensor([300, 700], device="cuda")
+    ref_model = model()
+    with torch.no_grad():
+        ref = ref_model(batch["image"], t, batch["masked_image"], batch["mask"])
+    sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
+    ref_tx = Recording(lambda c: 1e-5)
+    ref_state = TrainState.create(ref_model, dict(ref_model.named_parameters()), ref_tx)
+    ref_metrics = make_train_step(sched)(ref_state, batch, 3)[1]
+    m = model()
+    if mode == "tp":
+        params, specs = tp_shard_params(m, mesh)
+    else:
+        params, specs = shard_params(m, mesh)
+    part = shard_batch(batch, mesh, spatial=mode == "spatial")
+    before = LAUNCHES["attention.f32"]
+    with torch.no_grad(), attach(m, mesh, mode, specs):
+        out = m(part["image"], t, part["masked_image"], part["mask"])
+    launches = LAUNCHES["attention.f32"] - before
+    if mode == "spatial":
+        out = gather_h(out, ax, dim=1)
+    tx = Recording(lambda c: 1e-5)
+    state = TrainState.create(m, params, tx, specs=specs)
+    metrics = make_train_step(sched, mesh=mesh, spatial=mode == "spatial")(state, part, 3)[1]
+    whole, grads = full_params(state.params, specs, mesh), full_params(tx.grads, specs, mesh)
+
+    def rel(name):
+        return abs(float(metrics[name]) - float(ref_metrics[name])) / abs(float(ref_metrics[name]))
+
+    torch.save({"forward": ((out - ref).abs().max() / ref.abs().max()).item(),
+                "launches": launches, "loss": rel("loss"), "grad_norm": rel("grad_norm"),
+                # each gradient's error over its bound, 2e-5 of its largest value + 1e-7
+                "grads": max((grads[k] - g).abs().max().item()
+                             / (2e-5 * g.abs().max().item() + 1e-7)
+                             for k, g in ref_tx.grads.items()),
+                "params": max((whole[k] - p).abs().max().item()
+                              for k, p in ref_state.params.items())},
+               f"{out_dir}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["tp", "spatial"])
+def test_model_axis_two_ranks_on_the_card(cuda, mode, tmp_path):
+    """Two gloo ranks on the card (chip_smoke.py phase 14 at a small size):
+    the forward through the attention kernel (4 launches per rank: three
+    attention blocks at 16² and the middle one; under TP at one head each)
+    within 1e-4 of the unmeshed forward, relative to its largest value; one
+    train step's loss and grad_norm 1e-5 relative, its reduced gradients
+    2e-5 of each tensor's largest value plus 1e-7 (the parameters, 2e-5
+    after it, move by about lr whatever the gradient's size)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_model_axis_rank, args=(port, mode, str(tmp_path)), nprocs=2)
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        assert res["launches"] == 4, res
+        assert res["forward"] <= 1e-4 and res["loss"] <= 1e-5 and res["params"] <= 2e-5, res
+        assert res["grad_norm"] <= 1e-5 and res["grads"] <= 1.0, res

@@ -1,6 +1,7 @@
 """The port's parallel layer in one process: the launcher rules,
 `host_local_slice` and `fsdp_param_specs` against the JAX package's, the
-refusals of the 'model' axis (the next slice), and a one-rank gloo group, in
+'model' axis's refusals (JAX's ValueErrors) and its layouts built without a
+process group, and a one-rank gloo group, in
 which a meshed train, eval and distill step, a meshed `inpaint` and a
 checkpoint are the unmeshed ones bit for bit.
 
@@ -164,17 +165,33 @@ def test_fsdp_param_specs_pick_jax_axis(jax_shapes, config, n, min_size):
     assert checked == len(specs) and sharded > 0
 
 
+def _model_stub(m=1, k=2):
+    """Mesh (1, 1, k) seen from model rank m: what the specs, the slicing
+    and shard_batch read of a mesh (no process group in this test)."""
+    return types.SimpleNamespace(mesh_dim_names=("data", "fsdp", "model"), shape=(1, 1, k),
+                                 get_coordinate=lambda: [0, 0, m])
+
+
 def test_model_axis_and_spatial_refused():
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """JAX's ValueErrors still come first; past them the 'model' axis now
+    builds: shard_batch(spatial=True) keeps this rank's block of H rows, a
+    spatial train step is made. A mesh needs the process group."""
+    with pytest.raises(RuntimeError, match="process group"):
         create_mesh(model=2)
-    stub = types.SimpleNamespace(mesh_dim_names=("data", "fsdp"), shape=(1, 1))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        shard_batch({"image": np.zeros((2, 4))}, stub, spatial=True)
+    two_axes = types.SimpleNamespace(mesh_dim_names=("data", "fsdp"), shape=(1, 1),
+                                     get_coordinate=lambda: [0, 0])
+    image = np.arange(2 * 4 * 3 * 1).reshape(2, 4, 3, 1)
+    batch = {"image": image, "label": np.arange(2)}
+    assert shard_batch(batch, two_axes, spatial=True)["image"].shape == (2, 4, 3, 1)
+    out = shard_batch(batch, _model_stub(m=1), spatial=True)
+    np.testing.assert_array_equal(out["image"], image[:, 2:])
+    np.testing.assert_array_equal(out["label"], batch["label"])
     sched = DiffusionSchedule.create("linear", 100, device="cpu")
     with pytest.raises(ValueError, match="requires a mesh"):
         make_train_step(sched, spatial=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_train_step(sched, mesh=stub, spatial=True)
+    with pytest.raises(ValueError, match="'model' mesh axis > 1"):
+        make_train_step(sched, mesh=two_axes, spatial=True)
+    assert callable(make_train_step(sched, mesh=_model_stub(), spatial=True))
     with pytest.raises(RuntimeError, match="process group"):
         create_mesh()
 
@@ -187,15 +204,23 @@ def _tiny_pipeline(**kw):
 
 
 def test_pipeline_tp_and_spatial_refused():
+    """JAX's two ValueErrors come first; with a 'model' axis both layouts
+    build: tp_params keeps this rank's slices (qkv: its heads of q, k and
+    v), and a meshed pipeline still refuses compile_batch."""
     with pytest.raises(ValueError, match="pick one"):
         _tiny_pipeline(tp_params=True, shard_spatial=True)
     for kw in (dict(tp_params=True), dict(shard_spatial=True)):
         with pytest.raises(ValueError, match="'model' axis"):
             _tiny_pipeline(**kw)
-    model_mesh = types.SimpleNamespace(mesh_dim_names=("data", "fsdp", "model"),
-                                       shape=(1, 1, 2))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        _tiny_pipeline(mesh=model_mesh, tp_params=True)
+    whole = _tiny_pipeline().model.middle_block[1].qkv.weight.detach()
+    pipe = _tiny_pipeline(mesh=_model_stub(m=1), tp_params=True)
+    c = whole.shape[0] // 3
+    want = torch.cat([whole[i * c + c // 2:(i + 1) * c] for i in range(3)])
+    assert torch.equal(pipe.model.middle_block[1].qkv.weight, want)
+    spatial = _tiny_pipeline(mesh=_model_stub(), shard_spatial=True)
+    for p in (pipe, spatial):
+        with pytest.raises(ValueError, match="runs eagerly"):
+            p.compile_batch(2)
 
 
 def test_program_cache_refuses_a_mesh(tmp_path):
