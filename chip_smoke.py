@@ -3343,7 +3343,21 @@ def phase_parallel(torch, np, ckpt, n_attn, refs, smi):
 # of each tensor's largest value plus 1e-7, and its grad_norm at 1e-5
 # relative. bf16 forwards at phase 4's bound, the 10-step DDIM images (and a
 # 10-step `ddim-100-deep`, its feature cache under both layouts) at phase 4's
-# hole mean abs.
+# hole mean abs. The rest of training over the axis, float32, at the train
+# step's bounds against the unmeshed calls: a LoRA step (the default
+# attention targets, `b` drawn away from zero) under TP and under spatial
+# partitioning, a progressive step (the teacher its own TP slices) and a
+# consistency-distillation step (the teacher whole) under TP (its pseudo-Huber
+# gradient follows pred - target, a small difference of two forwards, so
+# float32 rounding weighs more there: its gradients are held to a fixed 2.5
+# times that bound, above the readings of sound runs on the H100, 1.61-1.68,
+# and below a control's, the same TP step with TF32 on in cuBLAS and cuDNN,
+# which must exceed it in the same run), a 1-epoch 2-step `fit` under TP with validation and a
+# checkpoint (losses at the train step's bound, the checkpoint restored into
+# one process bit for bit);
+# then a 10-step guided `ddim-100` under shard_spatial against the unmeshed
+# guided call at the images' bound, its `cond_fn` an autograd gradient that
+# mirrors H, so that it needs every block of rows.
 MODEL_AXIS_RANKS = 2
 MODEL_AXIS_BATCH = 2
 MODEL_AXIS_LR = 5e-6
@@ -3354,7 +3368,10 @@ MODEL_AXIS_NORM_RTOL = 1e-5
 MODEL_AXIS_PARAM_TOL = 2e-5
 MODEL_AXIS_GRAD_REL = 2e-5
 MODEL_AXIS_GRAD_FLOOR = 1e-7
-MODEL_AXIS_TIMEOUT = 300
+MODEL_AXIS_CONSISTENCY_GATE = 2.5
+MODEL_AXIS_TIMEOUT = 360
+MODEL_AXIS_FIT_ROWS = 4
+MODEL_AXIS_GUIDANCE = 0.5
 NOT_SCALING = "two ranks on one card over gloo: not a scaling figure"
 
 
@@ -3364,6 +3381,7 @@ def model_axis_rank(rank, port, workdir, ckpt):
     card, every gate checked here (a failed one exits non-zero), the bf16
     attention launches of its kernel-path calls written to
     WORKDIR/rank<RANK>.json."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -3538,6 +3556,182 @@ def model_axis_rank(rank, port, workdir, ckpt):
         torch.cuda.empty_cache()
     del ref_p, ref_g
 
+    # --- the rest of training over the axis, float32, against the unmeshed calls
+    def grad_errors(got_g, ref_g):
+        """Each gradient's error over its bound, 2e-5 of its largest + 1e-7."""
+        return {k: (got_g[k] - g).abs().max().item()
+                / (MODEL_AXIS_GRAD_REL * g.abs().max().item() + MODEL_AXIS_GRAD_FLOOR)
+                for k, g in ref_g.items()}
+
+    def held(label, got, ref, n, want, ms, ref_ms, slack=1.0):
+        """Gate one step's (metrics, whole gradients) against the unmeshed
+        step's: loss and grad_norm 1e-5 relative, each gradient within
+        `slack` times its bound; `want` attention.f32 launches."""
+        (got_m, got_g), (ref_m, ref_g) = got, ref
+        errs = {k: abs(got_m[k] - ref_m[k]) / abs(ref_m[k]) for k in ("loss", "grad_norm")}
+        g_err = grad_errors(got_g, ref_g)
+        worst = max(g_err, key=g_err.get)
+        say(f"{label} B={B} float32: loss {got_m['loss']:.7f} against {ref_m['loss']:.7f} "
+            f"unmeshed (relative {errs['loss']:.3g}, tol {MODEL_AXIS_LOSS_RTOL}); grad_norm "
+            f"relative {errs['grad_norm']:.3g} (tol {MODEL_AXIS_NORM_RTOL}); {len(got_g)} "
+            f"gradients, the worst at {g_err[worst]:.3g} of its bound ({worst}; gate "
+            f"{slack:.3g}); {n} "
+            f"attention.f32 launches (want {want}); {ms:.3f} ms by CUDA events, unmeshed "
+            f"{ref_ms:.3f} ms ({NOT_SCALING})")
+        check(set(got_g) == set(ref_g) and g_err[worst] <= slack
+              and errs["loss"] <= MODEL_AXIS_LOSS_RTOL and errs["grad_norm"] <= MODEL_AXIS_NORM_RTOL,
+              f"[14] rank {rank}: {label} disagrees with the unmeshed call")
+        check(n == want, f"[14] rank {rank}: {label} launches {n}, want {want}")
+
+    from fidm_tpu_torch.data.dataset import DataLoader
+    from fidm_tpu_torch.distill import make_consistency_step, make_distill_step
+    from fidm_tpu_torch.distill.progressive import unet_apply
+    from fidm_tpu_torch.lora import init_lora, lora_weights
+    from fidm_tpu_torch.parallel.collectives import ShardedModule
+    from fidm_tpu_torch.training import (CheckpointManager, FitConfig, fit, init_ema,
+                                         make_eval_step)
+
+    def lora_step(layout):
+        model = model_of(cfg32).requires_grad_(False)
+        adapter = init_lora(5, model, cfg32)  # on the whole model, then cut under TP
+        g = torch.Generator(device="cuda")
+        g.manual_seed(6)
+        adapter = {k: (v + 0.01 * torch.randn(v.shape, device="cuda", generator=g)
+                       if k.endswith("/b") else v).requires_grad_(True)
+                   for k, v in adapter.items()}
+        m = None if layout is None else mesh
+        specs = tp_shard_params(model, mesh)[1] if layout == "tp" else None
+        tx = Recording(lambda c: MODEL_AXIS_LR)
+        state = TrainState.create(model, adapter, tx, model_specs=specs)
+        step = make_train_step(sched, mesh=m, spatial=layout == "spatial",
+                               param_transform=lambda l: lora_weights(model, cfg32, l, specs, m))
+        part = batch if m is None else shard_batch(batch, m, spatial=layout == "spatial")
+        LAUNCHES.clear()
+        (_, metrics), ev, _ = timed(lambda: step(state, part, 7))
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: v.clone() for k, v in tx.grads.items()}), LAUNCHES["attention.f32"], ev
+
+    ref, _, ref_ev = lora_step(None)
+    for layout in ("tp", "spatial"):
+        got, n, ev = lora_step(layout)
+        held(f"LoRA step ({layout}, {len(got[1]) - 1} adapter tensors)", got, ref, n, 4, ev,
+             ref_ev)
+    del ref, got
+    torch.cuda.empty_cache()
+
+    def distill_step(kind, layout):
+        student = model_of(cfg32)
+        teacher = model_of(cfg32).requires_grad_(False)
+        m = None if layout is None else mesh
+        if m is None:
+            params, specs = dict(student.named_parameters()), None
+        else:
+            params, specs = tp_shard_params(student, mesh)
+            if kind == "progressive":  # the teacher on its own slices
+                tparams, tspecs = tp_shard_params(teacher, mesh)
+                teacher = ShardedModule(teacher, mesh, params=tparams, specs=tspecs)
+        tx = Recording(lambda c: MODEL_AXIS_LR)
+        state = TrainState.create(student, params, tx, specs=specs,
+                                  ema_params=init_ema(params) if kind != "progressive" else None)
+        step = (make_distill_step(sched, unet_apply, unet_apply, teacher_steps=4, mesh=m)
+                if kind == "progressive" else
+                make_consistency_step(sched, unet_apply, unet_apply, grid_size=40, mesh=m))
+        LAUNCHES.clear()
+        (_, metrics), ev, _ = timed(lambda: step(state, teacher, batch, 7))
+        grads = tx.grads if m is None else full_params(tx.grads, specs, m)
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: v.clone() for k, v in grads.items()}), LAUNCHES["attention.f32"], ev
+
+    for kind in ("progressive", "consistency"):
+        ref, _, ref_ev = distill_step(kind, None)
+        got, n, ev = distill_step(kind, "tp")
+        slack = 1.0
+        if kind == "consistency":
+            # its gradients at a fixed multiple of the bound; the control, the
+            # same step in TF32, shows in this run that the gate can fail
+            slack = MODEL_AXIS_CONSISTENCY_GATE
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                control, _, _ = distill_step(kind, "tp")
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            c = grad_errors(control[1], ref[1])
+            worst = max(c, key=c.get)
+            say(f"consistency step control: the TP step with TF32 on against the unmeshed "
+                f"float32 step, the worst gradient at {c[worst]:.3g} of its bound ({worst}; "
+                f"must exceed the gate {slack})")
+            check(c[worst] > slack,
+                  f"[14] rank {rank}: the consistency gate does not refuse the TF32 control")
+            del control
+        teacher_kind = "its own TP slices" if kind == "progressive" else "whole"
+        held(f"{kind} distillation step (tp, the teacher {teacher_kind})", got, ref, n, 12, ev,
+             ref_ev, slack)
+        del ref, got
+        torch.cuda.empty_cache()
+
+    class FitRows:
+        """MODEL_AXIS_FIT_ROWS seeded rows at full size; records what it reads."""
+
+        def __init__(self, seed):
+            self.seed, self.read = seed, []
+
+        def __len__(self):
+            return MODEL_AXIS_FIT_ROWS
+
+        def __getitem__(self, i):
+            self.read.append(int(i))
+            r = np.random.default_rng(self.seed + i)
+            img = np.clip(0.5 * r.standard_normal((size, size, 3)), -1, 1).astype(np.float32)
+            box = np.zeros((size, size, 1), np.float32)
+            box[size // 4: 3 * size // 4, size // 4: 3 * size // 4] = 1.0
+            return {"image": img, "masked_image": img * (1 - box), "mask": box}
+
+    def run_fit(m, ckdir):
+        model = model_of(cfg32)
+        params, specs = ((dict(model.named_parameters()), None) if m is None
+                         else tp_shard_params(model, mesh))
+        state = TrainState.create(model, params, Recording(lambda c: MODEL_AXIS_LR), specs=specs)
+        rows = FitRows(20)
+        mgr = None if ckdir is None else CheckpointManager(ckdir, mesh=m)
+        LAUNCHES.clear()
+        (state, hist), ev, _ = timed(lambda: fit(
+            state, make_train_step(sched, mesh=m), make_eval_step(sched, mesh=m),
+            DataLoader(rows, B, shuffle=True, seed=3, drop_last=True),
+            DataLoader(FitRows(40), B), 11,
+            FitConfig(num_epochs=1, log_fn=lambda *a, **k: None, handle_preemption=False),
+            checkpoint_manager=mgr, mesh=m))
+        if mgr is not None:
+            mgr.close()
+        return state, hist[0], rows.read, LAUNCHES["attention.f32"], ev
+
+    ckdir = str(Path(workdir) / "fit_tp")
+    _, ref_h, _, _, ref_ev = run_fit(None, None)
+    state, got_h, read, n, ev = run_fit(mesh, ckdir)
+    want = 4 * (MODEL_AXIS_FIT_ROWS // B + MODEL_AXIS_FIT_ROWS // B)
+    errs = {k: abs(got_h[k] - ref_h[k]) / abs(ref_h[k]) for k in ("train_loss", "val_loss")}
+    reads = [None] * MODEL_AXIS_RANKS
+    dist.all_gather_object(reads, read)
+    # the checkpoint restored into one process: the state's slices joined
+    whole_model = model_of(cfg32)
+    one = TrainState.create(whole_model, dict(whole_model.named_parameters()),
+                            Recording(lambda c: MODEL_AXIS_LR))
+    CheckpointManager(ckdir).restore("latest", one)
+    joined = full_params(state.params, state.specs, mesh)
+    same = sorted(joined) == sorted(one.params) and all(
+        torch.equal(one.params[k], p) for k, p in joined.items())
+    say(f"fit under TP, 1 epoch of {MODEL_AXIS_FIT_ROWS // B} steps B={B} float32 with "
+        f"validation and a checkpoint: train loss {got_h['train_loss']:.7f}, val loss "
+        f"{got_h['val_loss']:.7f}, relative to the unmeshed fit {errs['train_loss']:.3g} / "
+        f"{errs['val_loss']:.3g} (tol {MODEL_AXIS_LOSS_RTOL}); rows read per rank {reads}; the "
+        f"checkpoint restored into one process equals the slices joined: {same}; {n} "
+        f"attention.f32 launches (want {want}); {ev:.3f} ms by CUDA events, unmeshed "
+        f"{ref_ev:.3f} ms ({NOT_SCALING})")
+    check(max(errs.values()) <= MODEL_AXIS_LOSS_RTOL and same and n == want
+          and all(r == reads[0] for r in reads),
+          f"[14] rank {rank}: fit under TP disagrees")
+    del state, one, joined, whole_model
+    torch.cuda.empty_cache()
+
     # --- 10-step DDIM through the pipeline, bf16, against the unmeshed call;
     # then `ddim-100-deep` at 10 steps (its last MODEL_AXIS_CACHE_TAIL full),
     # the feature cache under both layouts, launching what the unmeshed call does
@@ -3576,8 +3770,36 @@ def model_axis_rank(rank, port, workdir, ckpt):
                 check(n == 4 * (MODEL_AXIS_STEPS + 1),
                       f"[14] rank {rank}: {layout}: launches {n}")
             del out
+        if preset == "ddim":
+            unguided = ref
         del ref
-    del plain_pipe, pipes
+
+    def mirror_guidance(x, t):
+        """grad of -c/2 |x - x mirrored along H|^2: each row's gradient needs
+        its mirror row, held by the other rank under shard_spatial."""
+        energy = -0.5 * MODEL_AXIS_GUIDANCE * (x - torch.flip(x, dims=[1])).square().sum()
+        return torch.autograd.grad(energy, x)[0]
+
+    ddim10 = dataclasses.replace(SAMPLER_PRESETS["ddim-100"], num_steps=MODEL_AXIS_STEPS)
+    ref = plain_pipe.inpaint(gt, mask, 0, sampler=ddim10, cond_fn=mirror_guidance)
+    LAUNCHES.clear()
+    out, ev, host = timed(lambda: pipes[1].inpaint(gt, mask, 0, sampler=ddim10,
+                                                   cond_fn=mirror_guidance))
+    n = LAUNCHES["attention.bf16"]
+    bf16_launches += n
+    hole = (out - ref).abs()[~keep].mean().item()
+    moved = (ref - unguided).abs()[~keep].mean().item()
+    exact = torch.equal(out[keep], gt[keep])
+    say(f"guided ddim at {MODEL_AXIS_STEPS} steps through InpaintingPipeline(shard_spatial=True) "
+        f"B={B}, cond_fn on the whole image: known pixels bit-equal to gt: {exact}; hole mean "
+        f"abs against the unmeshed guided call {hole:.4g} (tol {IMAGE_MEAN_TOL}); the guidance "
+        f"moved the unmeshed hole by {moved:.4g} (must exceed the tol); {n} attention.bf16 "
+        f"launches; {host / 1e3:.4f} s per call ({NOT_SCALING})")
+    check(exact and bool(torch.isfinite(out).all()) and hole <= IMAGE_MEAN_TOL
+          and moved > IMAGE_MEAN_TOL, f"[14] rank {rank}: the guided spatial call disagrees")
+    check(n == 4 * (MODEL_AXIS_STEPS + 1) and LAUNCHES["attention"] == n,
+          f"[14] rank {rank}: guided spatial launches {dict(LAUNCHES)}")
+    del out, ref, unguided, plain_pipe, pipes
     torch.cuda.empty_cache()
     with open(Path(workdir) / f"rank{rank}.json", "w") as f:
         json.dump({"attention.bf16": bf16_launches}, f)
@@ -3626,8 +3848,9 @@ def phase_model_axis(torch, ckpt, smi):
         launches = sum(json.loads((Path(tmp) / f"rank{r}.json").read_text())["attention.bf16"]
                        for r in range(MODEL_AXIS_RANKS))
     print(f"[14] model axis: {MODEL_AXIS_RANKS} ranks held TP and spatial forwards, train "
-          f"steps (gradients too) and {MODEL_AXIS_STEPS}-step ddim and ddim-100-deep pipelines "
-          f"to the unmeshed calls; bf16 attention "
+          f"steps (gradients too), LoRA steps, a progressive and a consistency step, a fit "
+          f"with its checkpoint, {MODEL_AXIS_STEPS}-step ddim and ddim-100-deep pipelines and "
+          f"a guided spatial ddim to the unmeshed calls; bf16 attention "
           f"launches {launches}; phase wall {time.perf_counter() - t_phase:.1f} s; {smi}",
           flush=True)
     return launches

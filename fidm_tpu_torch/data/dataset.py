@@ -220,7 +220,10 @@ class DataLoader:
     each global batch (`parallel.multihost.host_local_slice`):
     `batch_size` stays the global batch size, each rank yields
     batch_size / world rows per step, and a ragged tail is dropped. In one
-    process it changes nothing."""
+    process it changes nothing. With `mesh` set (`fit` sets it to the
+    steps') the rows are split over its data x fsdp ranks only
+    (`parallel.multihost.row_chunks`): the ranks of one model group read
+    the same rows."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
@@ -228,6 +231,7 @@ class DataLoader:
                  process_local: bool = False):
         self.dataset = dataset
         self.process_local = process_local
+        self.mesh = None
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -248,11 +252,11 @@ class DataLoader:
         self.epoch += 1
         step = self.batch_size
         if self.process_local:
-            from ..parallel.multihost import host_local_slice, process_count
+            from ..parallel.multihost import host_local_slice, process_count, row_chunks
 
             if process_count() > 1:
-                idx = host_local_slice(idx, self.batch_size)
-                step = self.batch_size // process_count()
+                idx = host_local_slice(idx, self.batch_size, self.mesh)
+                step = self.batch_size // row_chunks(self.mesh)[0]
         for start in range(0, len(idx), step):
             chunk = idx[start : start + step]
             if (self.drop_last or step != self.batch_size) and len(chunk) < step:

@@ -24,7 +24,10 @@ scales and embeddings too), never at the live weights.
 Under a mesh the step is `progressive.make_distill_step`'s: this rank's
 rows, gradients and loss averaged over the ranks, a student of fsdp shards
 gathered for its forward (and its EMA for the target network), the teacher
-a module or a `parallel.collectives.ShardedModule`.
+a module or a `parallel.collectives.ShardedModule`; over the "model" axis
+a student of model slices (the target network too, on the EMA's slices) or
+this rank's H block (`spatial=True`), the distance's per-sample sums
+completed over the axis.
 """
 from __future__ import annotations
 
@@ -37,9 +40,10 @@ from torch import nn
 from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule
 from ..training.ema import update_ema
-from ..parallel.collectives import full_params, gathered, whole
-from ..training.train_state import _global_means, _refuse_model_axis
-from .progressive import _alpha_sigma, _on_device, _step_inputs, _update, _x0_from
+from ..parallel.collectives import full_params, gathered, model_group
+from ..training.train_state import _check_spatial, _global_means, _model_axis
+from .progressive import (_alpha_sigma, _image_sums, _image_size, _on_device, _step_inputs,
+                          _teacher, _update, _x0_from)
 
 __all__ = [
     "consistency_grid",
@@ -107,6 +111,7 @@ def make_consistency_step(
     huber_c: Optional[float] = None,
     clip_denoised: bool = True,
     mesh=None,
+    spatial: bool = False,
 ):
     """Build the consistency train step (distillation or training).
 
@@ -123,9 +128,9 @@ def make_consistency_step(
     `progressive.make_distill_step`'s: the grid segment comes from
     `draws.timesteps(B, grid_size)`, the noise from `draws.noise(shape)`;
     metrics {loss, grad_norm (before the clip)} as device tensors. `mesh`
-    as in `make_distill_step`.
+    and `spatial` as in `make_distill_step`.
     """
-    _refuse_model_axis(mesh, "distillation")
+    _check_spatial(mesh, spatial)
     bounds_host = consistency_grid(sched.num_timesteps, grid_size)
     cache: Dict = {}
 
@@ -140,12 +145,12 @@ def make_consistency_step(
         eps = (x - a0 * x0) / torch.clamp(s0, min=1e-8)
         return a1 * x0 + s1 * eps
 
-    def distance(pred, target):
-        err2 = torch.sum((pred - target) ** 2, dim=(1, 2, 3))
+    def distance(pred, target, group):
+        err2 = _image_sums((pred - target) ** 2, group)
         if loss_metric == "l2":
             return err2.mean()
         # pseudo-huber; the improved-techniques default c = 0.00054*sqrt(D)
-        D = pred.shape[1] * pred.shape[2] * pred.shape[3]
+        D = _image_size(pred, group)
         c = huber_c if huber_c is not None else 0.00054 * float(np.sqrt(D))
         return (torch.sqrt(err2 + c * c) - c).mean()
 
@@ -154,7 +159,8 @@ def make_consistency_step(
             raise ValueError(
                 "consistency distillation needs a target network: create the "
                 "TrainState with ema_params=init_ema(<initial student params>)")
-        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh)
+        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh, spatial)
+        group = model_group(mesh) if spatial else None
         boundaries = _on_device(bounds_host, cache, device)
         x_start = batch["image"]
         B = x_start.shape[0]
@@ -173,19 +179,23 @@ def make_consistency_step(
                 # noise, no model evaluation
                 x_hat = gd.q_sample(sched, x_start, t1, noise)
             else:
-                with whole(teacher) as teacher_module:
+                with _teacher(teacher, mesh, spatial) as teacher_module:
                     x_hat = teacher_ddim_step(teacher_module, x_t, t0, t1, cond)
-            ema = full_params(state.ema_params, state.specs, mesh)
-            raw_tgt = _at_params(student_apply, state.model, ema, x_hat, t1, *cond)
+            # the EMA's fsdp shards whole, its model slices as they are: the
+            # target network runs under the student's own model-axis context
+            ema = full_params(state.ema_params, state.specs, mesh, model=False)
+            with _model_axis(state, mesh, spatial):
+                raw_tgt = _at_params(student_apply, state.model, ema, x_hat, t1, *cond)
             del ema
             target = consistency_x0(sched, raw_tgt, x_hat, t1, student_mean_type,
                                     clip_denoised)
 
-        with gathered(state.model, state.params, state.specs, mesh):
+        with gathered(state.model, state.params, state.specs, mesh), \
+                _model_axis(state, mesh, spatial):
             raw = student_apply(state.model, x_t, t0, *cond)
             pred = consistency_x0(sched, raw, x_t, t0, student_mean_type, clip_denoised)
-            loss = distance(pred, target)
-            grad_norm = _update(state, loss, mesh)
+            loss = distance(pred, target, group)
+            grad_norm = _update(state, loss, mesh, spatial)
         update_ema(state.ema_params, state.params, ema_decay)
         return state, {**_global_means({"loss": loss.detach()}, mesh), "grad_norm": grad_norm}
 

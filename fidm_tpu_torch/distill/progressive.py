@@ -23,9 +23,20 @@ and the gradients and the loss are averaged over the ranks, as in
 `training.make_train_step(mesh=)`; a student state of fsdp shards is
 gathered for its forward, and the teacher may be a
 `parallel.collectives.ShardedModule`, gathered for its two calls.
+
+Over the mesh's "model" axis, as the train step: a student state of
+`parallel.tp_shard_params` slices runs tensor-parallel, and `spatial=True`
+takes this rank's block of H rows (its segment index that of its rows, its
+noise that block of their draws), the loss's sums completed over the axis
+and every gradient summed over it. The teacher is frozen and separate: a
+`ShardedModule` whose specs hold model slices (`ShardedModule(teacher,
+mesh, params=p, specs=s)` from `tp_shard_params(teacher, mesh)`) runs
+tensor-parallel on them, any other teacher whole on every rank of a model
+group (on this rank's H block under spatial=True).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict
 
 import numpy as np
@@ -33,9 +44,9 @@ import torch
 
 from ..diffusion import gaussian as gd
 from ..diffusion.schedules import DiffusionSchedule
-from ..parallel.collectives import gathered, whole
-from ..training.train_state import (_check_specs, _global_means, _mesh_inputs,
-                                    _reduce_and_apply, _refuse_model_axis)
+from ..parallel.collectives import gathered, model_group, model_sharded_names, whole
+from ..training.train_state import (_check_spatial, _check_specs, _global_means, _mesh_inputs,
+                                    _model_axis, _reduce_and_apply)
 
 __all__ = ["distill_boundaries", "make_distill_step", "unet_apply"]
 
@@ -76,14 +87,50 @@ def _on_device(table: np.ndarray, cache: Dict, device) -> torch.Tensor:
     return cache[device]
 
 
-def _step_inputs(state, batch, draws, mesh=None):
+def _step_inputs(state, batch, draws, mesh=None, spatial: bool = False):
     """The batch on the student's device, the step's draws (the update count
-    folded in; this rank's rows under a mesh) and the conditioning pair."""
-    device, batch, draws = _mesh_inputs(state, batch, draws, mesh)
+    folded in; this rank's rows under a mesh, and its H block of them under
+    `spatial`) and the conditioning pair."""
+    device, batch, draws = _mesh_inputs(state, batch, draws, mesh, spatial)
     return device, batch, draws.fold(state.step), (batch["masked_image"], batch["mask"])
 
 
-def _update(state, loss, mesh=None) -> torch.Tensor:
+def _image_sums(x: torch.Tensor, spatial) -> torch.Tensor:
+    """Per-sample sums over H, W and C of an NHWC tensor, completed over the
+    blocks of H rows under spatial partitioning (`spatial`: the model
+    group, or None)."""
+    sums = x.sum(dim=(1, 2, 3))
+    return sums if spatial is None else spatial.sum(sums)
+
+
+def _image_size(x: torch.Tensor, spatial) -> int:
+    """H·W·C of the whole image whose (block of) rows `x` holds."""
+    return x[0].numel() * (1 if spatial is None else spatial.size)
+
+
+@contextlib.contextmanager
+def _teacher(teacher, mesh, spatial: bool):
+    """The frozen teacher's module for its calls (see the module doc):
+    gathered whole over the fsdp axis, with its model-axis context."""
+    from ..parallel.tp import attach
+
+    specs = getattr(teacher, "specs", None)
+    tp = mesh is not None and bool(model_sharded_names(specs))
+    if tp and spatial:
+        raise ValueError("a teacher of model-axis slices and spatial=True both use the "
+                         "mesh's 'model' axis: pass a whole teacher")
+    with whole(teacher) as module:
+        if spatial:
+            ctx = attach(module, mesh, "spatial")
+        elif tp:
+            ctx = attach(module, mesh, "tp", specs)
+        else:
+            ctx = contextlib.nullcontext()
+        with ctx:
+            yield module
+
+
+def _update(state, loss, mesh=None, spatial: bool = False) -> torch.Tensor:
     """The gradients of `loss` for every trained tensor (the gathered
     module's for sharded ones; call it inside `gathered`), averaged over the
     ranks under a mesh, and one optimizer update; returns their global norm
@@ -94,7 +141,7 @@ def _update(state, loss, mesh=None) -> torch.Tensor:
     leaves = [model_params[k] if k in sharded else state.params[k] for k in names]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return _reduce_and_apply(state, names, grads, mesh)
+    return _reduce_and_apply(state, names, grads, mesh, spatial)
 
 
 def make_distill_step(
@@ -107,6 +154,7 @@ def make_distill_step(
     student_mean_type: gd.ModelMeanType = gd.ModelMeanType.VELOCITY,
     clip_denoised: bool = True,
     mesh=None,
+    spatial: bool = False,
 ):
     """Build the distillation train step.
 
@@ -124,8 +172,10 @@ def make_distill_step(
     `mesh`: every rank calls the step with its rows of the global batch
     (see the module doc); the metrics are then global, the same on every
     rank, and in one rank the step is the unmeshed step bit for bit.
+    `spatial=True` (a replicated student state and a `parallel.shard_batch(
+    ..., spatial=True)` batch): this rank's block of H rows of its rows.
     """
-    _refuse_model_axis(mesh, "distillation")
+    _check_spatial(mesh, spatial)
     bounds_host = distill_boundaries(sched.num_timesteps, teacher_steps)
     n_student = teacher_steps // 2
     cache: Dict = {}
@@ -142,7 +192,8 @@ def make_distill_step(
         return a1 * x0 + s1 * eps
 
     def step(state, teacher, batch, draws):
-        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh)
+        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh, spatial)
+        group = model_group(mesh) if spatial else None
         boundaries = _on_device(bounds_host, cache, device)
         x_start = batch["image"]
         B = x_start.shape[0]
@@ -158,7 +209,7 @@ def make_distill_step(
 
         nd = x_t.ndim
         a0, s0 = _alpha_sigma(sched, t0, nd)
-        with torch.no_grad(), whole(teacher) as teacher_module:
+        with torch.no_grad(), _teacher(teacher, mesh, spatial) as teacher_module:
             # frozen teacher: two DDIM steps
             x_mid = teacher_ddim_step(teacher_module, x_t, t0, t1, cond)
             x_two = teacher_ddim_step(teacher_module, x_mid, t1, t2, cond)
@@ -170,11 +221,14 @@ def make_distill_step(
             w = torch.clamp((a0 / torch.clamp(s0, min=1e-8)) ** 2, min=1.0)
 
         state.model.train()
-        with gathered(state.model, state.params, state.specs, mesh):
+        with gathered(state.model, state.params, state.specs, mesh), \
+                _model_axis(state, mesh, spatial):
             raw = student_apply(state.model, x_t, t0, *cond)[..., :3]
             x0_s = _x0_from(raw, x_t, a0, s0, student_mean_type)
-            loss = (w * (x0_s - x0_target) ** 2).mean()
-            grad_norm = _update(state, loss, mesh)
+            sq = w * (x0_s - x0_target) ** 2
+            loss = (sq.mean() if group is None
+                    else _image_sums(sq, group).mean() / _image_size(sq, group))
+            grad_norm = _update(state, loss, mesh, spatial)
         return state, {**_global_means({"loss": loss.detach()}, mesh), "grad_norm": grad_norm}
 
     return step

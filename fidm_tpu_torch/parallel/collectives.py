@@ -296,16 +296,22 @@ def model_sharded_names(specs: Optional[Dict]) -> List[str]:
 
 
 def reduce_gradients(names: Sequence[str], grads: Sequence[torch.Tensor],
-                     specs: Optional[Dict], mesh, spatial: bool = False) -> List[torch.Tensor]:
+                     specs: Optional[Dict], mesh, partial: bool = False) -> List[torch.Tensor]:
     """Full per-rank gradients -> the global-batch mean in the state's
     layout: a sharded tensor's gradient reduce-scattered over the fsdp axis
     (its shard), then summed over the data axis; every other gradient summed
     over the ranks that hold other rows (one all-reduce per dtype; a model
-    slice's gradient is this rank's slice already, and a replicated
-    tensor's is the same on every rank of a model group); all times 1 / the
-    number of row chunks. `spatial`: each rank saw only its H block of its
-    rows, so every gradient is also summed over the model axis. Without a
-    mesh, the gradients as they are."""
+    slice's gradient is this rank's slice already); all times 1 / the
+    number of row chunks. `partial`: every gradient is this rank's part of
+    a sum over the model axis, so each is also summed over it (spatial
+    partitioning, where a rank saw only its H block of its rows; a LoRA
+    adapter over a tensor-parallel base, where a rank differentiated only
+    its slice of each delta). Otherwise, over a model axis, a tensor the
+    axis keeps whole has its gradient computed by every rank of the group
+    from the same inputs, but on the card cuDNN's weight-gradient kernels
+    need not sum in the same order on each: it is averaged over the group,
+    so that the ranks keep one value of it (the mean of k equal values is
+    that value at k = 2). Without a mesh, the gradients as they are."""
     if mesh is None:
         return list(grads)
     W = row_ranks(mesh)
@@ -319,8 +325,15 @@ def reduce_gradients(names: Sequence[str], grads: Sequence[torch.Tensor],
             out[i] = _reduce_scatter_dim(out[i], specs[names[i]].dim, fgroup, n)
         if axis_size(mesh, "data") > 1:
             _all_reduce_flat([out[i] for i in idx], mesh.get_group("data"))
-    if spatial:
+    k = axis_size(mesh, "model")
+    if partial:
         _all_reduce_flat(out, mesh.get_group("model"))
+    elif k > 1:
+        model = set(model_sharded_names(specs))
+        whole = [g for name, g in zip(names, out) if name not in model]
+        if whole:
+            _all_reduce_flat(whole, mesh.get_group("model"))
+            torch._foreach_mul_(whole, 1.0 / k)
     if W > 1:
         torch._foreach_mul_(out, 1.0 / W)
     return out
@@ -361,11 +374,13 @@ def broadcast_object(obj, src: int = 0):
 
 
 def full_params(params: Dict[str, torch.Tensor], specs: Optional[Dict],
-                mesh) -> Dict[str, torch.Tensor]:
+                mesh, model: bool = True) -> Dict[str, torch.Tensor]:
     """`params` with every sharded entry all-gathered whole (e.g. an EMA of
     shards, for a `functional_call`): fsdp shards over the fsdp axis, model
-    slices over the model axis (`join_slices`)."""
-    names, model = sharded_names(specs), model_sharded_names(specs)
+    slices over the model axis (`join_slices`). `model=False` leaves the
+    model slices as they are, for a call under `tp.attach`."""
+    names = sharded_names(specs)
+    model = model_sharded_names(specs) if model else []
     if not names and not model:
         return params
     out = dict(params)

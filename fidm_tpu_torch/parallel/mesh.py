@@ -57,6 +57,7 @@ __all__ = [
     "fsdp_param_specs",
     "shard_params",
     "shard_batch",
+    "spatial_block",
     "axis_size",
     "batch_index",
     "row_ranks",
@@ -274,8 +275,6 @@ def shard_batch(batch, mesh, spatial: bool = False, spatial_axis: str = "model")
     axis's size also keeps only block `model_rank(mesh)` of its H rows; every
     other leaf keeps its rows only, as in the JAX package."""
     W, r = row_ranks(mesh), batch_index(mesh)
-    n = axis_size(mesh, spatial_axis) if spatial else 1
-    m = mesh.get_coordinate()[list(mesh.mesh_dim_names).index(spatial_axis)] if n > 1 else 0
 
     def rows(x):
         if not hasattr(x, "shape") or len(x.shape) == 0:
@@ -283,12 +282,33 @@ def shard_batch(batch, mesh, spatial: bool = False, spatial_axis: str = "model")
         b = x.shape[0]
         if b % W:
             raise ValueError(f"batch {b} does not divide over the {W} ranks of the mesh")
-        x = x[r * (b // W): (r + 1) * (b // W)]
-        if n > 1 and len(x.shape) >= 4 and x.shape[1] % n == 0:
+        return x[r * (b // W): (r + 1) * (b // W)]
+
+    batch = _leaves(batch, rows)
+    return spatial_block(batch, mesh, spatial_axis) if spatial else batch
+
+
+def spatial_block(batch, mesh, axis: str = "model"):
+    """The spatial half of `shard_batch(spatial=True)`: of rows this rank
+    already holds (a dict, or one array or tensor), each image-like leaf
+    (ndim >= 4, NHWC) whose H divides by the size of `axis` keeps block
+    `model_rank(mesh)` of its H rows; the rest stays as it is. `fit` cuts a
+    process-local loader's rows so for a spatial step."""
+    n = axis_size(mesh, axis)
+    if n <= 1:
+        return batch
+    m = mesh.get_coordinate()[list(mesh.mesh_dim_names).index(axis)]
+
+    def block(x):
+        if hasattr(x, "shape") and len(x.shape) >= 4 and x.shape[1] % n == 0:
             h = x.shape[1] // n
-            x = x[:, m * h:(m + 1) * h]
+            return x[:, m * h:(m + 1) * h]
         return x
 
+    return _leaves(batch, block)
+
+
+def _leaves(batch, fn):
     if isinstance(batch, dict):
-        return {k: rows(v) for k, v in batch.items()}
-    return rows(batch) if isinstance(batch, (np.ndarray, torch.Tensor)) else batch
+        return {k: fn(v) for k, v in batch.items()}
+    return fn(batch) if isinstance(batch, (np.ndarray, torch.Tensor)) else batch

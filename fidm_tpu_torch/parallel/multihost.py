@@ -10,13 +10,13 @@ and the steps average over the ranks (`parallel/collectives.py`).
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["initialize", "launched_by_env", "host_local_slice", "global_batch",
+__all__ = ["initialize", "launched_by_env", "host_local_slice", "row_chunks", "global_batch",
            "is_primary", "barrier", "process_count", "process_index"]
 
 # markers of the multi-process launchers that the JAX package auto-detects
@@ -146,19 +146,35 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
+def row_chunks(mesh=None) -> Tuple[int, int]:
+    """(n, i): the global batch splits into n chunks of rows and this
+    process reads chunk i. Without a mesh, or over a mesh without a "model"
+    axis, n is the process count and i the rank; over a model axis the
+    ranks of one model group read the same chunk (`mesh.batch_index` of
+    `mesh.row_ranks`)."""
+    if mesh is None:
+        return process_count(), process_index()
+    from .mesh import batch_index, row_ranks
+
+    return row_ranks(mesh), batch_index(mesh)
+
+
 def host_local_slice(global_index: np.ndarray,
-                     global_batch_size: Optional[int] = None) -> np.ndarray:
+                     global_batch_size: Optional[int] = None, mesh=None) -> np.ndarray:
     """This process's slice of a global example-index array.
 
-    Without `global_batch_size`: the contiguous 1/process_count slice.
+    Without `global_batch_size`: the contiguous 1/n slice.
 
     With `global_batch_size` B: the per-batch slice. The order is viewed as
     consecutive global batches of B, and this process takes rows
     [i*B/n, (i+1)*B/n) of each, so the ranks' rows of every step, in rank
     order, are exactly the batch one process would make. A ragged tail short
-    of a full global batch is dropped."""
-    n = process_count()
-    i = process_index()
+    of a full global batch is dropped.
+
+    (n, i) is `row_chunks(mesh)`: the process count and rank, or, over a
+    `mesh` with a "model" axis, its row chunks, which every rank of a model
+    group shares."""
+    n, i = row_chunks(mesh)
     if global_batch_size is None:
         per = len(global_index) // n
         return global_index[i * per: (i + 1) * per]

@@ -30,7 +30,7 @@ rank's Megatron slices of the model (with `fsdp_params`, fsdp shards of the
 rest) and the ranks of a model group run their slices of the same rows with
 those rows' noise; `shard_spatial` keeps the model whole and gives each rank
 of a model group its block of H rows of those rows, with that block of
-their noise. Either way every rank returns the whole batch, and the known
+their noise (a `cond_fn` is still called on their whole images). Either way every rank returns the whole batch, and the known
 pixels are exactly `gt`.
 """
 from __future__ import annotations
@@ -139,6 +139,22 @@ def create_model_and_schedule(
     model = model.to(device).eval().requires_grad_(False)
     sched = DiffusionSchedule.create(config.schedule, config.num_timesteps, device=device)
     return model, sched
+
+
+def _whole_image_guidance(cond_fn, axis, block):
+    """`cond_fn` for a rank that holds `block` of H rows under spatial
+    partitioning: it is called, as the JAX package's is, with the whole
+    image of the rank's rows (every rank's block gathered over `axis`, a
+    leaf that requires grad) at `t`, and this rank's block of its gradient
+    is kept. Every rank of the group computes the same gradient, so no
+    result depends on which rank's copy a block comes from."""
+    from .parallel.collectives import gather_h
+
+    def guided(x, t):
+        whole = gather_h(x.detach(), axis, dim=1).requires_grad_(True)
+        return block.of(cond_fn(whole, t))
+
+    return guided
 
 
 class InpaintingPipeline:
@@ -313,8 +329,9 @@ class InpaintingPipeline:
 
     def _inpaint_meshed(self, gt, mask, noise, cfg, cond_fn):
         """This rank's rows of the whole batch (under shard_spatial its block
-        of their H rows), their noise cut from the whole batch's draws, then
-        every rank's part gathered."""
+        of their H rows, a `cond_fn` still seeing their whole images), their
+        noise cut from the whole batch's draws, then every rank's part
+        gathered."""
         from .parallel.collectives import (HBlock, Rows, RowNoise, SpatialNoise, gather_h,
                                            gather_rows, whole)
         from .parallel.mesh import batch_index, row_ranks
@@ -329,14 +346,12 @@ class InpaintingPipeline:
             from .parallel.collectives import model_group
             from .parallel.tp import check_spatial
 
-            if cond_fn is not None:
-                raise NotImplementedError(
-                    "cond_fn under shard_spatial (it would see one block of rows): a later "
-                    "slice of the port")
             ax, H = model_group(self.mesh), gt.shape[1]
             check_spatial(H, ax.size, len(self.config.unet.channel_mult))
             block = HBlock(ax.rank * H // ax.size, (ax.rank + 1) * H // ax.size, H)
             gt, mask, noise = block.of(gt), block.of(mask), SpatialNoise(noise, block)
+            if cond_fn is not None:
+                cond_fn = _whole_image_guidance(cond_fn, ax, block)
         with torch.no_grad() if cond_fn is not None else torch.inference_mode(), \
                 whole(self._sharded if self._sharded is not None else self.model) as model:
             with self._model_axis(model):

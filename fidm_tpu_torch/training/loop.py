@@ -6,9 +6,11 @@ Host-side orchestration; each batch is one train step on the device (see
 prefetcher. Losses stay on the device until the epoch's end.
 
 Under a mesh every rank runs this loop on its own rows: `fit` sets the
-loaders' `process_local` when the process group has more than one rank, the
+loaders' `process_local` (and their `mesh`, so that the ranks of one model
+group read the same rows) when the process group has more than one rank, the
 steps reduce over the ranks, and `validate` returns the global mean, the same
-on every rank.
+on every rank. A step built with `spatial=True` gets this rank's block of H
+rows of each batch (`parallel.mesh.spatial_block`).
 """
 from __future__ import annotations
 
@@ -58,14 +60,19 @@ class GracefulShutdown:
         return False
 
 
-def _device_batches(loader, device, threaded: bool = False):
+def _device_batches(loader, device, threaded: bool = False, step=None, mesh=None):
+    """The loader's batches on `device`; a `spatial` step's (see
+    `make_train_step`) cut to this rank's block of H rows."""
     from ..data.prefetch import ThreadedLoader, device_prefetch
+    from ..parallel.mesh import spatial_block
 
     keys = ("image", "masked_image", "mask", "label")
+    spatial = getattr(step, "spatial", False)
 
     def gen():
         for b in loader:
-            yield {k: b[k] for k in keys if k in b}
+            b = {k: b[k] for k in keys if k in b}
+            yield spatial_block(b, mesh) if spatial else b
 
     # threaded=True moves the loader's CPU work onto a background thread;
     # the batches are the same either way
@@ -153,7 +160,7 @@ def train_epoch(state, train_step, loader, draws, mesh=None, log_every=50, log_f
     n = 0
     vote = _StopVote(mesh) if should_stop is not None else None
     try:
-        for batch in _device_batches(loader, device, threaded):
+        for batch in _device_batches(loader, device, threaded, train_step, mesh):
             state, metrics = train_step(state, batch, draws)
             losses.append(metrics["loss"])
             n += 1
@@ -176,7 +183,8 @@ def validate(state, eval_step, loader, draws, mesh=None, threaded: bool = False)
     device = _state_device(state)
     draws = _as_draws(draws, device)
     losses = [eval_step(state, batch, draws.fold(i))["loss"]
-              for i, batch in enumerate(_device_batches(loader, device, threaded))]
+              for i, batch in enumerate(_device_batches(loader, device, threaded, eval_step,
+                                                        mesh))]
     if mesh is None:
         return _mean(losses)
     from ..parallel.collectives import broadcast_object
@@ -205,16 +213,15 @@ def fit(state, train_step, eval_step, train_loader, val_loader, draws, cfg: FitC
 
     `mesh`: the steps' mesh. With more than one rank each rank must feed
     only its rows of every global batch: a loader with `process_local` gets
-    it set; another loader must yield those rows itself (logged).
+    it set (and its `mesh`: over a "model" axis the rows are the model
+    group's); another loader must yield those rows itself (logged).
 
     Returns (state, history), one entry per epoch: {epoch, train_loss,
     val_loss, seconds} (and preempted=True for an interrupted epoch). The
     train loss is this rank's mean of the global step losses, so the same
     on every rank."""
     from ..parallel.multihost import process_count
-    from .train_state import _refuse_model_axis
 
-    _refuse_model_axis(mesh, "fit")
     draws = _as_draws(draws, _state_device(state))
     if mesh is not None and process_count() > 1:
         for ld in (train_loader, val_loader):
@@ -222,6 +229,8 @@ def fit(state, train_step, eval_step, train_loader, val_loader, draws, cfg: FitC
                 continue
             if hasattr(ld, "process_local"):
                 ld.process_local = True
+                if hasattr(ld, "mesh"):
+                    ld.mesh = mesh
             else:
                 cfg.log_fn(
                     f"fit(): multi-process run with a loader of type {type(ld).__name__} "

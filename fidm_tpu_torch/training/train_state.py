@@ -44,7 +44,11 @@ waits for the card (the loop reads them once per epoch).
   rank's); `make_train_step(spatial=True)` with a replicated state trains on
   this rank's block of H rows of its rows (`parallel.shard_batch(...,
   spatial=True)`), its draws that block of its rows' draws, the loss's sums
-  completed over the axis, and every gradient summed over it.
+  completed over the axis, and every gradient summed over it. LoRA runs
+  under both: over a tensor-parallel base (`TrainState.model_specs`) each
+  rank adds its slice of every delta (`lora.lora_weights(..., specs,
+  mesh)`), so the adapter's gradients are partial sums, summed over the
+  axis as spatial partitioning sums every gradient.
 """
 from __future__ import annotations
 
@@ -218,7 +222,10 @@ class TrainState:
     `specs` (from `parallel.shard_params`) are the placements of `params`
     over a mesh's fsdp axis: a `Shard(d)` entry of `params` is this rank's
     shard, and so are its moments and its EMA; None means every tensor is
-    whole."""
+    whole. `model_specs` are the placements of the model's own parameters
+    where `params` are other tensors: the specs of `parallel.tp_shard_params(
+    model, mesh)` for a LoRA adapter over a tensor-parallel frozen base
+    (None: the model is whole, or its tensors are `params`)."""
 
     model: nn.Module
     params: Dict[str, torch.Tensor]
@@ -227,11 +234,12 @@ class TrainState:
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     specs: Optional[Dict] = None
+    model_specs: Optional[Dict] = None
 
     @classmethod
     def create(cls, model: nn.Module, params: Dict[str, torch.Tensor], tx: Optimizer,
-               ema_params=None, specs=None) -> "TrainState":
-        return cls(model, params, tx, tx.init(params), 0, ema_params, specs)
+               ema_params=None, specs=None, model_specs=None) -> "TrainState":
+        return cls(model, params, tx, tx.init(params), 0, ema_params, specs, model_specs)
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor], mesh=None) -> "TrainState":
         """One optimizer update; `grads` in the state's layout (`mesh`: the
@@ -354,10 +362,10 @@ def _check_specs(state, mesh):
         raise ValueError("the state holds fsdp shards (specs from parallel.shard_params): "
                          "build the step with mesh=")
     model = model_sharded_names(state.specs)
+    if (model or model_sharded_names(state.model_specs)) and mesh is None:
+        raise ValueError("the state holds model-axis slices (specs from "
+                         "parallel.tp_shard_params): build the step with mesh=")
     if model:
-        if mesh is None:
-            raise ValueError("the state holds model-axis slices (specs from "
-                             "parallel.tp_shard_params): build the step with mesh=")
         own = dict(state.model.named_parameters())
         if any(own[k].shape != state.params[k].shape for k in model):
             raise ValueError("the state's model-axis slices are not its model's parameters: "
@@ -365,12 +373,19 @@ def _check_specs(state, mesh):
     return names
 
 
+def _model_specs(state):
+    """The placements of the state's model: its own `model_specs` (a LoRA
+    base), else those of its parameters."""
+    return state.specs if state.model_specs is None else state.model_specs
+
+
 def _model_axis(state, mesh, spatial: bool):
     """The model-axis context of a step's forward and backward (`tp.attach`,
-    or nothing): "tp" for a state of model slices, "spatial" for spatial=True."""
+    or nothing): "tp" for a model of slices, "spatial" for spatial=True."""
     from ..parallel.collectives import model_sharded_names
 
-    tp = bool(model_sharded_names(state.specs))
+    specs = _model_specs(state)
+    tp = bool(model_sharded_names(specs))
     if mesh is None or not (tp or spatial):
         return contextlib.nullcontext()
     from ..parallel.mesh import axis_size
@@ -381,16 +396,21 @@ def _model_axis(state, mesh, spatial: bool):
     if tp and spatial:
         raise ValueError("a state of model-axis slices and spatial=True both use the "
                          "mesh's 'model' axis: pick one latency-scaling layout")
-    return attach(state.model, mesh, "spatial" if spatial else "tp", state.specs)
+    return attach(state.model, mesh, "spatial" if spatial else "tp", specs)
 
 
-def _refuse_model_axis(mesh, what: str) -> None:
+def _check_spatial(mesh, spatial: bool) -> None:
+    """spatial=True needs a mesh with a "model" axis of more than one rank."""
+    if not spatial:
+        return
     from ..parallel.mesh import axis_size
 
-    if mesh is not None and axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            f"{what} under the mesh's 'model' axis is not ported yet; it is a later slice "
-            "of the port")
+    if mesh is None:
+        raise ValueError("spatial=True requires a mesh")
+    if axis_size(mesh, "model") <= 1:
+        raise ValueError(
+            f"spatial=True needs a 'model' mesh axis > 1; mesh is "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
 
 def _reduce_and_apply(state: TrainState, names: List[str], grads: List[torch.Tensor],
@@ -398,10 +418,13 @@ def _reduce_and_apply(state: TrainState, names: List[str], grads: List[torch.Ten
     """A step's gradients (one per name of `state.params`) averaged over the
     ranks into the state's layout (as they are without a mesh), then one
     optimizer update; returns the global norm of all of them before the
-    clip, the step's `grad_norm`."""
-    from ..parallel.collectives import global_grad_norm, reduce_gradients
+    clip, the step's `grad_norm`. They are partial sums over the model axis
+    under spatial partitioning and for the trained tensors over a base of
+    model slices (`model_specs`: a LoRA adapter)."""
+    from ..parallel.collectives import global_grad_norm, model_sharded_names, reduce_gradients
 
-    grads = reduce_gradients(names, grads, state.specs, mesh, spatial)
+    partial = spatial or bool(model_sharded_names(state.model_specs))
+    grads = reduce_gradients(names, grads, state.specs, mesh, partial)
     grad_norm = global_grad_norm(names, grads, state.specs, mesh)
     state.apply_gradients(dict(zip(names, grads)), mesh)
     return grad_norm
@@ -465,24 +488,18 @@ def make_train_step(
     the unmeshed step bit for bit. Over a "model" axis, a state from
     `parallel.tp_shard_params` trains tensor-parallel, and `spatial=True`
     (with a replicated state and a `shard_batch(..., spatial=True)` batch)
-    trains on this rank's block of H rows (see the module doc); LoRA
-    (`param_transform`) there is a later slice.
+    trains on this rank's block of H rows (see the module doc). LoRA runs
+    under both: tensor-parallel, the state holds the adapter with
+    `model_specs` the frozen base's slices, and `param_transform` must hand
+    each rank its slice of every delta (`lora.lora_weights(model, cfg, l,
+    specs, mesh)`); spatial, the base is whole. The returned step's
+    `spatial` attribute tells `fit` to cut its H blocks.
 
     Metrics, as device tensors (global means under a mesh): loss, mse,
     grad_norm (before the clip), mask_coverage, and vb when the loss has it."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
-    if spatial:
-        from ..parallel.mesh import axis_size
-
-        if mesh is None:
-            raise ValueError("spatial=True requires a mesh")
-        if axis_size(mesh, "model") <= 1:
-            raise ValueError(
-                f"spatial=True needs a 'model' mesh axis > 1; mesh is "
-                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
-    if param_transform is not None:
-        _refuse_model_axis(mesh, "LoRA (param_transform)")
+    _check_spatial(mesh, spatial)
     loss_kw = dict(loss_type=loss_type, var_type=var_type, mean_type=mean_type,
                    use_injection=use_injection, injection_schedule=injection_schedule,
                    vb_weight=vb_weight, loss_weight=loss_weight,
@@ -569,6 +586,7 @@ def make_train_step(
             metrics["vb"] = means["vb"]
         return state, metrics
 
+    step.spatial = spatial
     return step
 
 
@@ -586,30 +604,35 @@ def make_eval_step(
     mesh=None,
     param_transform: Optional[Callable] = None,
     use_labels: bool = True,
+    spatial: bool = False,
 ):
     """step(state, batch, draws) -> {"loss", "mse"}: the validation loss,
     without gradients, with `draws` used as given (no update count folded
     in). Under `mesh` the batch and the draws are this rank's rows, as in
     `make_train_step`, and the losses are the global means, the same on
-    every rank; a state of model-axis slices runs tensor-parallel."""
-    if param_transform is not None:
-        _refuse_model_axis(mesh, "LoRA (param_transform)")
+    every rank; a model of model-axis slices runs tensor-parallel, and
+    `spatial=True` takes this rank's block of H rows of its rows, as the
+    train step does (LoRA's `param_transform` too, as there)."""
+    _check_spatial(mesh, spatial)
 
     @torch.no_grad()
     def step(state: TrainState, batch, draws):
-        from ..parallel.collectives import gathered
+        from ..parallel.collectives import gathered, model_group
 
         _check_specs(state, mesh)
-        device, batch, draws = _mesh_inputs(state, batch, draws, mesh)
-        overrides = param_transform(state.params) if param_transform is not None else {}
+        device, batch, draws = _mesh_inputs(state, batch, draws, mesh, spatial)
         with gathered(state.model, state.params, state.specs, mesh), \
-                _model_axis(state, mesh, False), weight_overrides(overrides):
-            loss, terms = _loss_for_batch(
-                state.model, sched, batch, draws,
-                loss_type=loss_type, var_type=var_type, mean_type=mean_type,
-                use_injection=use_injection, injection_schedule=injection_schedule,
-                vb_weight=vb_weight, loss_weight=loss_weight,
-                loss_weight_gamma=loss_weight_gamma, use_labels=use_labels)
+                _model_axis(state, mesh, spatial):
+            overrides = param_transform(state.params) if param_transform is not None else {}
+            with weight_overrides(overrides):
+                loss, terms = _loss_for_batch(
+                    state.model, sched, batch, draws,
+                    loss_type=loss_type, var_type=var_type, mean_type=mean_type,
+                    use_injection=use_injection, injection_schedule=injection_schedule,
+                    vb_weight=vb_weight, loss_weight=loss_weight,
+                    loss_weight_gamma=loss_weight_gamma, use_labels=use_labels,
+                    spatial=model_group(mesh) if spatial else None)
         return _global_means({"loss": loss, "mse": terms.get("mse", loss)}, mesh)
 
+    step.spatial = spatial
     return step

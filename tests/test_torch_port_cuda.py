@@ -761,7 +761,170 @@ def _model_axis_rank(rank, port, mode, out_dir):
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("mode", ["tp", "spatial"])
+def _model_axis_training_rank(rank, port, case, out_dir):
+    """One of two gloo ranks on the card for the rest of training over the
+    axis, at the small size of `_model_axis_rank`, float32, against the
+    unmeshed calls: {name: (error, bound)} and the attention launches
+    against those wanted, written to OUT_DIR/rank<RANK>.pt."""
+    import torch.distributed as dist
+
+    from fidm_tpu_torch.data.dataset import DataLoader
+    from fidm_tpu_torch.diffusion import DiffusionSchedule
+    from fidm_tpu_torch.distill import make_consistency_step, make_distill_step
+    from fidm_tpu_torch.distill.progressive import unet_apply
+    from fidm_tpu_torch.lora import init_lora, lora_weights
+    from fidm_tpu_torch.models import InpaintingUNet
+    from fidm_tpu_torch.parallel import create_mesh, shard_batch, shard_params, tp_shard_params
+    from fidm_tpu_torch.parallel.collectives import ShardedModule, full_params
+    from fidm_tpu_torch.training import (CheckpointManager, FitConfig, TrainState, fit,
+                                         init_ema, make_eval_step, make_train_step)
+    from fidm_tpu_torch.training.train_state import Optimizer
+
+    class Recording(Optimizer):  # keeps the reduced gradients of its first update
+        def update(self, grads, state, params, *args):
+            if not hasattr(self, "grads"):
+                self.grads = {k: g.detach().clone() for k, g in grads.items()}
+            return super().update(grads, state, params, *args)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    mesh = create_mesh(model=2)
+    cfg = UNetConfig(image_size=32, in_channels=9, model_channels=64, out_channels=6,
+                     num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                     num_heads=2, num_head_channels=64, dtype=torch.float32)
+    sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
+
+    def model():
+        torch.manual_seed(0)
+        m = InpaintingUNet(cfg)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.add_(0.05 * torch.randn_like(p))
+        return m.to("cuda")
+
+    def rows(n, seed):
+        rng = np.random.default_rng(seed)
+        img = np.clip(0.5 * rng.standard_normal((n, 32, 32, 3)), -1, 1).astype(np.float32)
+        mask = np.zeros((n, 32, 32, 1), np.float32)
+        mask[:, 8:24, 4:20] = 1.0
+        return [{"image": img[i], "masked_image": img[i] * (1 - mask[i]), "mask": mask[i]}
+                for i in range(n)]
+
+    batch = {k: torch.from_numpy(np.stack([r[k] for r in rows(2, 0)])).cuda()
+             for k in ("image", "masked_image", "mask")}
+    errors, launches = {}, []
+
+    def compare(label, got, ref):
+        """loss and grad_norm 1e-5 relative, each gradient over its bound
+        (2e-5 of its largest value + 1e-7)."""
+        (gm, gg), (rm, rg) = got, ref
+        for k in ("loss", "grad_norm"):
+            errors[f"{label} {k}"] = (abs(float(gm[k]) - float(rm[k])) / abs(float(rm[k])), 1e-5)
+        errors[f"{label} grads"] = (max((gg[k] - g).abs().max().item()
+                                        / (2e-5 * g.abs().max().item() + 1e-7)
+                                        for k, g in rg.items()), 1.0)
+
+    def counted(fn, want):
+        before = LAUNCHES["attention.f32"]
+        out = fn()
+        launches.append((LAUNCHES["attention.f32"] - before, want))
+        return out
+
+    if case.startswith("lora"):
+        def lora(layout):
+            m = model().requires_grad_(False)
+            adapter = {k: (v + 0.05 * torch.randn_like(v) if k.endswith("/b") else v)
+                       .requires_grad_(True) for k, v in init_lora(1, m, cfg).items()}
+            me = None if layout is None else mesh
+            specs = tp_shard_params(m, mesh)[1] if layout == "tp" else None
+            tx = Recording(lambda c: 1e-5)
+            state = TrainState.create(m, adapter, tx, model_specs=specs)
+            step = make_train_step(sched, mesh=me, spatial=layout == "spatial",
+                                   param_transform=lambda l: lora_weights(m, cfg, l, specs, me))
+            part = batch if me is None else shard_batch(batch, me, spatial=layout == "spatial")
+            metrics = counted(lambda: step(state, part, 3)[1], 4)
+            return metrics, tx.grads
+
+        compare(case, lora(case[5:]), lora(None))
+    elif case == "distill_tp":
+        for kind in ("progressive", "consistency"):
+            res = []
+            for me in (None, mesh):
+                student, teacher = model(), model().requires_grad_(False)
+                params, specs = ((dict(student.named_parameters()), None) if me is None
+                                 else tp_shard_params(student, mesh))
+                if me is not None and kind == "progressive":
+                    tp, ts = tp_shard_params(teacher, mesh)
+                    teacher = ShardedModule(teacher, mesh, params=tp, specs=ts)
+                tx = Recording(lambda c: 1e-5)
+                state = TrainState.create(student, params, tx, specs=specs, ema_params=(
+                    init_ema(params) if kind == "consistency" else None))
+                step = (make_distill_step(sched, unet_apply, unet_apply, teacher_steps=4,
+                                          mesh=me) if kind == "progressive" else
+                        make_consistency_step(sched, unet_apply, unet_apply, grid_size=10,
+                                              mesh=me))
+                metrics = counted(lambda: step(state, teacher, batch, 3)[1], 12)
+                res.append((metrics, tx.grads if me is None else full_params(tx.grads, specs, me)))
+            compare(kind, res[1], res[0])
+    elif case.startswith("fit"):
+        spatial = case == "fit_spatial"
+
+        def run(me, ckdir):
+            m = model()
+            if me is None:
+                params, specs = dict(m.named_parameters()), None
+            else:
+                params, specs = (shard_params if spatial else tp_shard_params)(m, mesh)
+            state = TrainState.create(m, params, Recording(lambda c: 1e-5), specs=specs)
+            mgr = None if ckdir is None else CheckpointManager(ckdir, mesh=me)
+            sp = spatial and me is not None
+            state, hist = counted(lambda: fit(
+                state, make_train_step(sched, mesh=me, spatial=sp),
+                make_eval_step(sched, mesh=me, spatial=sp),
+                DataLoader(rows(4, 1), 2, shuffle=True, seed=3, drop_last=True),
+                DataLoader(rows(2, 2), 2), 5,
+                FitConfig(num_epochs=1, log_fn=lambda *a, **k: None, handle_preemption=False),
+                checkpoint_manager=mgr, mesh=me), 12)
+            return state, hist[0]
+
+        _, ref = run(None, None)
+        state, got = run(mesh, f"{out_dir}/fit_ckpt")
+        for k in ("train_loss", "val_loss"):
+            errors[f"fit {k}"] = (abs(got[k] - ref[k]) / abs(ref[k]), 1e-5)
+        m = model()
+        one = TrainState.create(m, dict(m.named_parameters()), Recording(lambda c: 1e-5))
+        CheckpointManager(f"{out_dir}/fit_ckpt").restore("latest", one)
+        joined = full_params(state.params, state.specs, mesh)
+        errors["fit checkpoint restored into one process"] = (
+            max((one.params[k] - p).abs().max().item() for k, p in joined.items()), 0.0)
+    else:  # guided_spatial
+        def mirror(x, t):
+            energy = -0.25 * (x - torch.flip(x, dims=[1])).square().sum()
+            return torch.autograd.grad(energy, x)[0]
+
+        ddim = SamplerConfig(method="ddim", num_steps=4, eta=0.9, injection=True)
+        config = PipelineConfig(unet=cfg, sampler=ddim)
+        gt, mask = batch["image"], batch["mask"]
+        ref = InpaintingPipeline(model().requires_grad_(False), sched, config).inpaint(
+            gt, mask, 0, cond_fn=mirror)
+        pipe = InpaintingPipeline(model().requires_grad_(False), sched, config, mesh=mesh,
+                                  shard_spatial=True)
+        out = counted(lambda: pipe.inpaint(gt, mask, 0, cond_fn=mirror), 20)
+        keep = mask[..., 0] < 0.5
+        errors["guided images"] = ((out - ref).abs().max().item(), 1e-4)
+        errors["guided known pixels"] = ((out[keep] - gt[keep]).abs().max().item(), 0.0)
+    torch.save({"errors": errors, "launches": launches}, f"{out_dir}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+_TRAINING_CASES = ["lora_tp", "lora_spatial", "distill_tp", "fit_tp", "fit_spatial",
+                   "guided_spatial"]
+
+
+@pytest.mark.parametrize("mode", ["tp", "spatial"] + _TRAINING_CASES)
 def test_model_axis_two_ranks_on_the_card(cuda, mode, tmp_path):
     """Two gloo ranks on the card (chip_smoke.py phase 14 at a small size):
     the forward through the attention kernel (4 launches per rank: three
@@ -769,7 +932,14 @@ def test_model_axis_two_ranks_on_the_card(cuda, mode, tmp_path):
     within 1e-4 of the unmeshed forward, relative to its largest value; one
     train step's loss and grad_norm 1e-5 relative, its reduced gradients
     2e-5 of each tensor's largest value plus 1e-7 (the parameters, 2e-5
-    after it, move by about lr whatever the gradient's size)."""
+    after it, move by about lr whatever the gradient's size). The rest of
+    training at the train step's bounds: a LoRA step under TP and under
+    spatial partitioning; a progressive step (the teacher its own slices)
+    and a consistency step (the teacher whole) under TP; a 1-epoch 2-step
+    fit under TP and one under spatial partitioning, each checkpoint
+    restored into one process bit for bit; a
+    guided 4-step DDIM under shard_spatial within 1e-4, known pixels exact;
+    each with its unmeshed call's attention launches."""
     import socket
 
     import torch.multiprocessing as mp
@@ -777,9 +947,14 @@ def test_model_axis_two_ranks_on_the_card(cuda, mode, tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    mp.spawn(_model_axis_rank, args=(port, mode, str(tmp_path)), nprocs=2)
+    rank_fn = _model_axis_rank if mode in ("tp", "spatial") else _model_axis_training_rank
+    mp.spawn(rank_fn, args=(port, mode, str(tmp_path)), nprocs=2)
     for r in range(2):
         res = torch.load(tmp_path / f"rank{r}.pt")
+        if mode not in ("tp", "spatial"):
+            assert all(n == want for n, want in res["launches"]), res
+            assert all(err <= bound for err, bound in res["errors"].values()), res
+            continue
         assert res["launches"] == 4, res
         assert res["forward"] <= 1e-4 and res["loss"] <= 1e-5 and res["params"] <= 2e-5, res
         assert res["grad_norm"] <= 1e-5 and res["grads"] <= 1.0, res

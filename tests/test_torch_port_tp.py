@@ -74,12 +74,13 @@ def _forward(inputs, mesh, mode):
 
 
 def _train_step(inputs, mesh, mode, fsdp_min_size=None):
-    """One train step on JAX's recorded draws: metrics, the optimizer's
-    gradients (this rank's layout and whole), the parameters after it
-    (whole) and the local shapes of the state."""
+    """One train step on JAX's recorded draws: metrics, this rank's own
+    gradients as they enter `reduce_gradients` (before any reduction over
+    the ranks), the optimizer's gradients (this rank's layout and whole),
+    the parameters after it (whole) and the local shapes of the state."""
     from test_torch_port_multiprocess import RecordedDraws, _recording_optimizer
 
-    from fidm_tpu_torch.parallel import shard_batch, shard_params, tp_shard_params
+    from fidm_tpu_torch.parallel import collectives, shard_batch, shard_params, tp_shard_params
     from fidm_tpu_torch.parallel.collectives import full_params
     from fidm_tpu_torch.training import TrainState, make_train_step
 
@@ -92,8 +93,19 @@ def _train_step(inputs, mesh, mode, fsdp_min_size=None):
     state = TrainState.create(model, params, tx, specs=specs)
     step = make_train_step(inputs["sched"], mesh=mesh, spatial=mode == "spatial")
     batch = shard_batch(inputs["batch"], mesh, spatial=mode == "spatial")
-    _, metrics = step(state, batch, RecordedDraws(inputs["draws"]))
+    own, reduce_gradients = {}, collectives.reduce_gradients
+
+    def recording(names, grads, *args):
+        own.update((k, g.detach().clone()) for k, g in zip(names, grads))
+        return reduce_gradients(names, grads, *args)
+
+    collectives.reduce_gradients = recording
+    try:
+        _, metrics = step(state, batch, RecordedDraws(inputs["draws"]))
+    finally:
+        collectives.reduce_gradients = reduce_gradients
     return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "own_grads": own,
             "local_grads": {k: g.clone() for k, g in tx.grads.items()},
             "grads": full_params(tx.grads, specs, mesh),
             "params": {k: v.detach().clone()
@@ -528,9 +540,12 @@ def test_train_step_matches_jax(refs, job, case):
 
 
 def test_replicated_gradients_equal_across_a_model_group(job):
-    """A replicated tensor's gradient (the replicated stream's, through
-    copy_to_model's backward) is the same on every rank of a model group, so
-    no all-reduce over the model axis is needed; the split ones differ."""
+    """A replicated tensor's gradient is the same on every rank of a model
+    group: as each rank computed it, before any reduction over the ranks
+    (the replicated stream's, complete through copy_to_model's backward),
+    and after the step's reduction (which also averages it over the group,
+    so that the ranks keep one value where the card's cuDNN sums in
+    another order on each rank); the split ones differ."""
     groups = {"train_tp_m4": ("dm", [[0, 1, 2, 3]]), "train_tp_fsdp": ("fm", [[0, 1], [2, 3]])}
     for case, (j, model_groups) in groups.items():
         for ranks in model_groups:
@@ -540,11 +555,12 @@ def test_replicated_gradients_equal_across_a_model_group(job):
             assert len(replicated) >= 10
             for k in replicated:
                 for other in res[1:]:
-                    torch.testing.assert_close(other["local_grads"][k], res[0]["local_grads"][k],
-                                               rtol=0, atol=0, msg=f"{case} {k}")
+                    for grads in ("own_grads", "local_grads"):
+                        torch.testing.assert_close(other[grads][k], res[0][grads][k], rtol=0,
+                                                   atol=0, msg=f"{case} {grads} {k}")
             split = [k for k, v in kinds.items() if v == "ModelShard"]
-            assert any(not torch.equal(res[0]["local_grads"][k], res[1]["local_grads"][k])
-                       for k in split)
+            for grads in ("own_grads", "local_grads"):
+                assert any(not torch.equal(res[0][grads][k], res[1][grads][k]) for k in split)
 
 
 @pytest.mark.parametrize("case", ["inpaint_tp", "inpaint_spatial", "inpaint_tp_cached",
@@ -586,7 +602,8 @@ def test_tp_checkpoint_round_trip(started, job):
 
 def test_model_axis_refusals():
     """JAX's ValueErrors come first, in JAX's words; LoRA, distillation and
-    fit under the model axis are a later slice's."""
+    fit build under a model axis (the steps also with spatial=True), where
+    they ran only unmeshed before."""
     from fidm_tpu_torch.diffusion import DiffusionSchedule
     from fidm_tpu_torch.distill import make_consistency_step, make_distill_step
     from fidm_tpu_torch.distill.progressive import unet_apply
@@ -601,14 +618,21 @@ def test_model_axis_refusals():
                                          r"\{'data': 4, 'fsdp': 2\}"):
         make_train_step(sched, mesh=two_axes, spatial=True)
     model_mesh = _stub_mesh(2)
-    for make in (lambda: make_train_step(sched, mesh=model_mesh, param_transform=dict),
-                 lambda: make_eval_step(sched, mesh=model_mesh, param_transform=dict),
-                 lambda: make_distill_step(sched, unet_apply, unet_apply, teacher_steps=4,
-                                           mesh=model_mesh),
-                 lambda: make_consistency_step(sched, unet_apply, unet_apply, mesh=model_mesh),
-                 lambda: fit(None, None, None, [], None, 0, FitConfig(), mesh=model_mesh)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make()
+    for spatial in (False, True):
+        for make in (lambda: make_train_step(sched, mesh=model_mesh, param_transform=dict,
+                                             spatial=spatial),
+                     lambda: make_eval_step(sched, mesh=model_mesh, param_transform=dict,
+                                            spatial=spatial),
+                     lambda: make_distill_step(sched, unet_apply, unet_apply, teacher_steps=4,
+                                               mesh=model_mesh, spatial=spatial),
+                     lambda: make_consistency_step(sched, unet_apply, unet_apply,
+                                                   mesh=model_mesh, spatial=spatial)):
+            assert callable(make())
+    assert make_train_step(sched, mesh=model_mesh, spatial=True).spatial
+    assert not make_eval_step(sched, mesh=model_mesh).spatial
+    state = types.SimpleNamespace(params={"w": torch.zeros(1)})
+    assert fit(state, None, None, [], None, 0, FitConfig(num_epochs=0),
+               mesh=model_mesh) == (state, [])
     check_spatial(16, 4, 2)
     check_spatial(256, 2, 6)
     with pytest.raises(ValueError, match="H=16 over 4 ranks at 4 levels"):
