@@ -12,7 +12,8 @@ Phases, one line each (or a few), any failure exits non-zero:
    (sm_90a), one process per source, all started together;
 2. each kernel against its plain PyTorch version on the card, with its time
    beside the plain version's, a PyTorch call's and its bound: attention
-   over sequence lengths, head dims and dtypes, and in bf16 at every batch
+   over sequence lengths (with phase 14's whole-level 196 and 49), head dims
+   and dtypes, and in bf16 at every batch
    size of phase 6's ladder and at phase 7's batch 16; the int8 quantizer at the
    FFHQ-256 UNet's weight shapes, a ragged one and a tall one that streams,
    bit for bit, cold and warm, one device operation per call, with its
@@ -120,7 +121,11 @@ Phases, one line each (or a few), any failure exits non-zero:
    `create_mesh(data=1, fsdp=1)` over it: 3 full-width train steps, a
    progressive and a consistency step, and `ddim-100` through
    `InpaintingPipeline(mesh=)`, each bit-equal to the same calls without the
-   mesh (phase 3's output, 404 launches), and `cli.train` for one epoch and
+   mesh (phase 3's output, 404 launches), the meshed pipeline's `ddim-100`
+   program (`compile_batch`, a CUDA graph; with and without `fsdp_params`)
+   replayed bit-equal to the meshed eager call and to phase 3's output (404
+   launches a replay; capture and replay seconds, static bytes), and
+   `cli.train` for one epoch and
    again over its directory with and without the group (the same history,
    files, best.json and state); ms per step with and without the mesh; the
    group destroyed after it;
@@ -134,7 +139,13 @@ Phases, one line each (or a few), any failure exits non-zero:
    train step of each layout against the unmeshed step in float32, and a
    10-step DDIM through `InpaintingPipeline(tp_params=True)` and
    `(shard_spatial=True)` against the unmeshed call (known pixels bit-equal
-   to gt); the ranks' times are printed, and are no scaling figure;
+   to gt); then at 224², where the 14-row level's blocks of 7 would be odd and
+   levels 4-5 and the middle block run whole on both ranks, a float32 and a
+   bf16 spatial forward, a float32 spatial train step and a 10-step DDIM
+   through `shard_spatial` against the unmeshed calls, and a meshed
+   `compile_batch` over gloo on CUDA refused (a CUDA graph captures NCCL
+   collectives only); the spatial forwards' collectives counted; the ranks'
+   times are printed, and are no scaling figure;
 15. a JSON line of the kernels, then the contract line
    {"ok": true, "device": {...}}.
 
@@ -173,6 +184,9 @@ TF32_SPLIT_PRODUCTS = 3
 # Phase 2's head dims for the f32 kernel: the UNet's 64, and 32 and 128, which
 # the kernel takes too (the bf16 rows: 64 and 32)
 F32_HEAD_DIMS = (64, 32, 128)
+# Phase 2's sequence lengths of phase 14's calls at 224^2, where the attention
+# runs whole on every rank: 14x14 at level 4 and 7x7 in the middle block
+SPATIAL_WHOLE_S = (196, 49)
 ATOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 # The bf16 kernel against the plain version run in float32 on the same bf16
 # inputs: |err| <= 2^-8 |ref| + 3e-3. The kernel rounds only P (unnormalised,
@@ -243,10 +257,11 @@ CACHE_MODES = (None, 1, 2, 5)
 # 21, 13; 21, 13), 0 per cached step (branch 2 or 1).
 CACHED_PRESETS = {"ddim-100-deep": 164, "ddim-100-turbo": 136, "ddim-20-fast": 52,
                   "dpm-20-fast": 52}
-# bench.py's headline: ddim-100-deep at batch 16, 3 timed calls after one
-# warm-up, against the reference's 3.42 s per sample for DDIM-100.
+# bench.py's headline: ddim-100-deep at batch 16, 2 timed calls after one
+# warm-up (3 before a cut of depth that pays for phase 14's calls at 224^2),
+# against the reference's 3.42 s per sample for DDIM-100.
 BENCH_BATCH = 16
-BENCH_REPEATS = 3
+BENCH_REPEATS = 2
 BASELINE_TIME_PER_SAMPLE = 3.42
 # The quantizer at the shapes the FFHQ-256 UNet gives it ([rows, out channels]:
 # the 3x3 convs at 512 out and 1024/1536/768 in, qkv, a 3x3 conv at 128 out),
@@ -422,7 +437,7 @@ def phase_kernels(torch, F, attention, kernel_override):
     batches = (BATCH,) + tuple(b for b in SERVE_BATCHES + (BENCH_BATCH,) if b != BATCH)
     cases = [(dtype, d, s, b) for dtype in (torch.bfloat16, torch.float32)
              for d in ((64, 32) if dtype == torch.bfloat16 else F32_HEAD_DIMS)
-             for s in (64, 256, 1024, 4096, 100)
+             for s in (64, 256, 1024, 4096, 100) + (SPATIAL_WHOLE_S if d == 64 else ())
              for b in (batches if (dtype, d) == (torch.bfloat16, 64) and s in (64, 256)
                        else (BATCH,))]
     for dtype, d, s, b in cases:
@@ -3292,7 +3307,44 @@ def phase_parallel(torch, np, ckpt, n_attn, refs, smi):
             check(launches.get("attention.bf16") == n_attn * n_steps,
                   f"[13] meshed ddim-100 launches {launches}, not {n_attn} x {n_steps}")
             held.append(f"ddim-100 (bits, {n_attn * n_steps} launches)")
-            del pipe, pmodel
+            del pipe
+
+            # the meshed call's program (a CUDA graph of it, the NCCL group's
+            # collectives in it), with and without fsdp_params, installed and
+            # replayed through inpaint
+            for label, kw in (("mesh=", {}), ("mesh=, fsdp_params=True", dict(fsdp_params=True))):
+                pipe = InpaintingPipeline(pmodel, psched, config, mesh=mesh, **kw)
+                (program, built), reserved = program_memory(torch, lambda: launches_of(
+                    lambda: pipe.compile_batch(BATCH)))
+                pipe.install_program(BATCH, config.sampler, program)
+                replays = []
+                for _ in range(2):
+                    LAUNCHES.clear()
+                    t0 = time.perf_counter()
+                    replay = pipe.inpaint(gt, mask, 0)
+                    torch.cuda.synchronize()
+                    replays.append((time.perf_counter() - t0, dict(LAUNCHES)))
+                total["attention.bf16"] += sum(n.get("attention.bf16", 0) for _, n in replays)
+                eq_eager, eq_ref = torch.equal(replay, out), torch.equal(replay.cpu(), ref)
+                n_replay = [n.get("attention.bf16", 0) for _, n in replays]
+                print(f"[13] compile_batch({BATCH}, ddim-100) on InpaintingPipeline({label}): a "
+                      f"CUDA graph: {program.graph is not None}; recording run "
+                      f"{program.record_s:.3f} s ({built}), capture {program.capture_s:.3f} s; "
+                      f"replays through inpaint {', '.join(f'{t:.4f}' for t, _ in replays)} s "
+                      f"against {secs:.4f} s eager under the mesh; {n_replay} attention.bf16 "
+                      f"launches a replay; bit-equal to the meshed eager call {eq_eager} and to "
+                      f"phase 3's output {eq_ref}; static bytes {program.static_bytes} "
+                      f"({program.static_bytes / 2**20:.1f} MiB), reserved by the build "
+                      f"{reserved / 2**20:.1f} MiB, the model's parameters "
+                      f"{sum(t.nbytes for t in pmodel.parameters()) / 2**20:.1f} MiB whole on "
+                      f"this rank; {smi}", flush=True)
+                check(program.graph is not None and eq_eager and eq_ref,
+                      f"[13] the meshed program ({label}) differs from the eager call")
+                check(n_replay == [n_attn * n_steps] * 2,
+                      f"[13] meshed program ({label}) launches {n_replay}")
+                held.append(f"a meshed ddim-100 program, {label} (bits, {n_replay[0]} launches)")
+                del pipe, program, replay
+            del pmodel
             torch.cuda.empty_cache()
 
             group_cli = cli_train("under the one-rank group", tmp / "ck_group")
@@ -3358,6 +3410,9 @@ def phase_parallel(torch, np, ckpt, n_attn, refs, smi):
 # then a 10-step guided `ddim-100` under shard_spatial against the unmeshed
 # guided call at the images' bound, its `cond_fn` an autograd gradient that
 # mirrors H, so that it needs every block of rows.
+# Last, at 224^2 (MODEL_AXIS_UNEVEN), where levels 4-5 and the middle block
+# run whole on both ranks: the spatial forwards, a float32 spatial train step
+# and a 10-step DDIM through shard_spatial, at the same bounds.
 MODEL_AXIS_RANKS = 2
 MODEL_AXIS_BATCH = 2
 MODEL_AXIS_LR = 5e-6
@@ -3372,7 +3427,31 @@ MODEL_AXIS_CONSISTENCY_GATE = 2.5
 MODEL_AXIS_TIMEOUT = 360
 MODEL_AXIS_FIT_ROWS = 4
 MODEL_AXIS_GUIDANCE = 0.5
+# H=W of phase 14's calls whose 14-row level does not split over the two ranks
+MODEL_AXIS_UNEVEN = 224
 NOT_SCALING = "two ranks on one card over gloo: not a scaling figure"
+
+
+def count_collectives(dist, fn):
+    """(fn(), {collective: calls}) of the `torch.distributed` collectives
+    that fn makes (the port's collectives look them up at each call)."""
+    counts = collections.Counter()
+    names = ("all_gather", "all_gather_into_tensor", "all_reduce")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(n):
+        def call(*args, **kwargs):
+            counts[n] += 1
+            return saved[n](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n))
+    try:
+        return fn(), dict(sorted(counts.items()))
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
 
 
 def model_axis_rank(rank, port, workdir, ckpt):
@@ -3464,13 +3543,13 @@ def model_axis_rank(rank, port, workdir, ckpt):
             ref = model(x, t, masked, mask)
             LAUNCHES.clear()
             with attach(model, mesh, "spatial"):
-                out, ev, host = timed(lambda: model(x[:, lo:hi], t, masked[:, lo:hi],
-                                                    mask[:, lo:hi]))
+                (out, ev, host), calls = count_collectives(dist, lambda: timed(
+                    lambda: model(x[:, lo:hi], t, masked[:, lo:hi], mask[:, lo:hi])))
             n_sp = LAUNCHES[kind]
             e_sp = rel(gather_h(out, ax, dim=1), ref)
             say(f"spatial forward B={B} {name}: rows [{lo}, {hi}) of {size}; max abs / max "
-                f"|unmeshed| {e_sp:.4g} (tol {tol}); {n_sp} {kind} launches; {ev:.3f} ms by "
-                f"CUDA events, {host:.3f} ms host ({NOT_SCALING})")
+                f"|unmeshed| {e_sp:.4g} (tol {tol}); {n_sp} {kind} launches; collectives "
+                f"{calls}; {ev:.3f} ms by CUDA events, {host:.3f} ms host ({NOT_SCALING})")
             check(e_sp <= tol, f"[14] rank {rank}: the spatial {name} forward disagrees")
             check(n_sp == 4 and LAUNCHES["attention"] == 4,
                   f"[14] rank {rank}: spatial {name} forward launches {dict(LAUNCHES)}")
@@ -3502,7 +3581,7 @@ def model_axis_rank(rank, port, workdir, ckpt):
     sched = DiffusionSchedule.create("quadratic", 1000, device="cuda")
     batch = {"image": gt, "masked_image": masked, "mask": mask}
 
-    def train(layout):
+    def train(layout, batch=batch):
         model = model_of(cfg32)
         if layout == "tp":
             params, specs = tp_shard_params(model, mesh)
@@ -3799,7 +3878,90 @@ def model_axis_rank(rank, port, workdir, ckpt):
           and moved > IMAGE_MEAN_TOL, f"[14] rank {rank}: the guided spatial call disagrees")
     check(n == 4 * (MODEL_AXIS_STEPS + 1) and LAUNCHES["attention"] == n,
           f"[14] rank {rank}: guided spatial launches {dict(LAUNCHES)}")
-    del out, ref, unguided, plain_pipe, pipes
+    del out, ref, unguided
+
+    # --- H=W=MODEL_AXIS_UNEVEN: the 14-row level's blocks of 7 rows are odd,
+    # so levels 4 and 5 and the middle block (the attention) run whole on
+    # both ranks, between a gather and this rank's rows taken again
+    from fidm_tpu_torch.parallel.tp import check_spatial
+
+    size_u = MODEL_AXIS_UNEVEN
+    split = check_spatial(size_u, ax.size, len(cfg16.channel_mult))
+    gt_u, mask_u = (a[:B] for a in main_inputs(torch, size_u))
+    keep_u = mask_u[..., 0] < 0.5
+    x_u = torch.randn(gt_u.shape, device="cuda", generator=g)
+    masked_u = gt_u * keep_u[..., None]
+    lo_u, hi_u = ax.rank * size_u // ax.size, (ax.rank + 1) * size_u // ax.size
+    say(f"H=W={size_u} over {ax.size} ranks: {split} of {len(cfg16.channel_mult)} levels split "
+        f"(blocks of {size_u // ax.size}, then {[(size_u >> lv) // ax.size for lv in range(split)]}"
+        f" rows), the rest whole on each rank")
+    check(split == 4, f"[14] rank {rank}: {split} split levels at H={size_u}")
+    for cfg, tol in ((cfg32, UNET_F32_TOL), (cfg16, UNET_BF16_TOL)):
+        kind = "attention.f32" if cfg.dtype == torch.float32 else "attention.bf16"
+        name = str(cfg.dtype).replace("torch.", "")
+        with torch.inference_mode():
+            model = model_of(cfg).eval()
+            ref = model(x_u, t, masked_u, mask_u)
+            LAUNCHES.clear()
+            with attach(model, mesh, "spatial"):
+                (out, ev, host), calls = count_collectives(dist, lambda: timed(
+                    lambda: model(x_u[:, lo_u:hi_u], t, masked_u[:, lo_u:hi_u],
+                                  mask_u[:, lo_u:hi_u])))
+            n_sp = LAUNCHES[kind]
+            e_sp = rel(gather_h(out, ax, dim=1), ref)
+            say(f"spatial forward B={B} {name} at {size_u}^2: rows [{lo_u}, {hi_u}); max abs / "
+                f"max |unmeshed| {e_sp:.4g} (tol {tol}); collectives {calls}; {n_sp} {kind} "
+                f"launches (attention "
+                f"whole: [{B}, 8, {(size_u // 16) ** 2}, 64] and [{B}, 8, "
+                f"{(size_u // 32) ** 2}, 64]); {ev:.3f} ms by CUDA events, {host:.3f} ms host "
+                f"({NOT_SCALING})")
+            check(e_sp <= tol, f"[14] rank {rank}: the spatial {name} forward at {size_u} "
+                               "disagrees")
+            check(n_sp == 4 and LAUNCHES["attention"] == 4,
+                  f"[14] rank {rank}: spatial {name} forward at {size_u} launches "
+                  f"{dict(LAUNCHES)}")
+            if kind == "attention.bf16":
+                bf16_launches += n_sp
+            del model, ref, out
+        torch.cuda.empty_cache()
+
+    batch_u = {"image": gt_u, "masked_image": masked_u, "mask": mask_u}
+    ref_m, ref_p, ref_g, _, ref_ev, ref_host = train(None, batch_u)
+    got_m, got_p, got_g, n, ev, host = train("spatial", batch_u)
+    held(f"spatial train step at {size_u}^2", (got_m, got_g), (ref_m, ref_g), n, 4, ev, ref_ev)
+    p_err = max((got_p[k] - ref_p[k]).abs().max().item() for k in ref_p)
+    say(f"spatial train step at {size_u}^2: {len(got_p)} parameters within {p_err:.3g} of the "
+        f"unmeshed step's (tol {MODEL_AXIS_PARAM_TOL}); {host:.3f} ms host, unmeshed "
+        f"{ref_host:.3f} ms ({NOT_SCALING})")
+    check(p_err <= MODEL_AXIS_PARAM_TOL, f"[14] rank {rank}: spatial step at {size_u}: params")
+    del ref_p, ref_g, got_p, got_g
+    torch.cuda.empty_cache()
+
+    ref = plain_pipe.inpaint(gt_u, mask_u, 0, sampler=ddim10)
+    LAUNCHES.clear()
+    out, ev, host = timed(lambda: pipes[1].inpaint(gt_u, mask_u, 0, sampler=ddim10))
+    n = LAUNCHES["attention.bf16"]
+    bf16_launches += n
+    hole = (out - ref).abs()[~keep_u].mean().item()
+    exact = torch.equal(out[keep_u], gt_u[keep_u])
+    say(f"ddim at {MODEL_AXIS_STEPS} steps through InpaintingPipeline(shard_spatial=True) B={B} "
+        f"at {size_u}^2: known pixels bit-equal to gt: {exact}; hole mean abs against the "
+        f"unmeshed call {hole:.4g} (tol {IMAGE_MEAN_TOL}); {n} attention.bf16 launches; "
+        f"{host / 1e3:.4f} s per call ({NOT_SCALING})")
+    check(exact and bool(torch.isfinite(out).all()) and hole <= IMAGE_MEAN_TOL,
+          f"[14] rank {rank}: the spatial ddim at {size_u} disagrees")
+    check(n == 4 * (MODEL_AXIS_STEPS + 1) and LAUNCHES["attention"] == n,
+          f"[14] rank {rank}: spatial ddim at {size_u} launches {dict(LAUNCHES)}")
+    # a CUDA graph captures NCCL collectives only: a program over gloo refuses
+    try:
+        pipes[1].compile_batch(B, ddim10)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    say(f"compile_batch on the gloo group with CUDA tensors: refused: {refused}")
+    check(refused is not None and "NCCL" in refused,
+          f"[14] rank {rank}: a meshed compile_batch over gloo on CUDA did not raise")
+    del out, ref, plain_pipe, pipes
     torch.cuda.empty_cache()
     with open(Path(workdir) / f"rank{rank}.json", "w") as f:
         json.dump({"attention.bf16": bf16_launches}, f)
@@ -3850,7 +4012,8 @@ def phase_model_axis(torch, ckpt, smi):
     print(f"[14] model axis: {MODEL_AXIS_RANKS} ranks held TP and spatial forwards, train "
           f"steps (gradients too), LoRA steps, a progressive and a consistency step, a fit "
           f"with its checkpoint, {MODEL_AXIS_STEPS}-step ddim and ddim-100-deep pipelines and "
-          f"a guided spatial ddim to the unmeshed calls; bf16 attention "
+          f"a guided spatial ddim, and at {MODEL_AXIS_UNEVEN}^2 (two levels whole) spatial "
+          f"forwards, a train step and a ddim, to the unmeshed calls; bf16 attention "
           f"launches {launches}; phase wall {time.perf_counter() - t_phase:.1f} s; {smi}",
           flush=True)
     return launches

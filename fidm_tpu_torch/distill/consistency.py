@@ -26,8 +26,8 @@ rows, gradients and loss averaged over the ranks, a student of fsdp shards
 gathered for its forward (and its EMA for the target network), the teacher
 a module or a `parallel.collectives.ShardedModule`; over the "model" axis
 a student of model slices (the target network too, on the EMA's slices) or
-this rank's H block (`spatial=True`), the distance's per-sample sums
-completed over the axis.
+this rank's H block (`spatial=True`; batch-only on an image kept whole),
+the distance's per-sample sums completed over the axis.
 """
 from __future__ import annotations
 
@@ -159,8 +159,8 @@ def make_consistency_step(
             raise ValueError(
                 "consistency distillation needs a target network: create the "
                 "TrainState with ema_params=init_ema(<initial student params>)")
-        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh, spatial)
-        group = model_group(mesh) if spatial else None
+        device, batch, draws, cond, split = _step_inputs(state, batch, draws, mesh, spatial)
+        group = model_group(mesh) if split else None
         boundaries = _on_device(bounds_host, cache, device)
         x_start = batch["image"]
         B = x_start.shape[0]
@@ -179,23 +179,23 @@ def make_consistency_step(
                 # noise, no model evaluation
                 x_hat = gd.q_sample(sched, x_start, t1, noise)
             else:
-                with _teacher(teacher, mesh, spatial) as teacher_module:
+                with _teacher(teacher, mesh, split) as teacher_module:
                     x_hat = teacher_ddim_step(teacher_module, x_t, t0, t1, cond)
             # the EMA's fsdp shards whole, its model slices as they are: the
             # target network runs under the student's own model-axis context
             ema = full_params(state.ema_params, state.specs, mesh, model=False)
-            with _model_axis(state, mesh, spatial):
+            with _model_axis(state, mesh, split):
                 raw_tgt = _at_params(student_apply, state.model, ema, x_hat, t1, *cond)
             del ema
             target = consistency_x0(sched, raw_tgt, x_hat, t1, student_mean_type,
                                     clip_denoised)
 
         with gathered(state.model, state.params, state.specs, mesh), \
-                _model_axis(state, mesh, spatial):
+                _model_axis(state, mesh, split):
             raw = student_apply(state.model, x_t, t0, *cond)
             pred = consistency_x0(sched, raw, x_t, t0, student_mean_type, clip_denoised)
             loss = distance(pred, target, group)
-            grad_norm = _update(state, loss, mesh, spatial)
+            grad_norm = _update(state, loss, mesh, split)
         update_ema(state.ema_params, state.params, ema_decay)
         return state, {**_global_means({"loss": loss.detach()}, mesh), "grad_norm": grad_norm}
 

@@ -28,7 +28,8 @@ Over the mesh's "model" axis, as the train step: a student state of
 `parallel.tp_shard_params` slices runs tensor-parallel, and `spatial=True`
 takes this rank's block of H rows (its segment index that of its rows, its
 noise that block of their draws), the loss's sums completed over the axis
-and every gradient summed over it. The teacher is frozen and separate: a
+and every gradient summed over it; on an image kept whole it runs
+batch-only on the axis. The teacher is frozen and separate: a
 `ShardedModule` whose specs hold model slices (`ShardedModule(teacher,
 mesh, params=p, specs=s)` from `tp_shard_params(teacher, mesh)`) runs
 tensor-parallel on them, any other teacher whole on every rank of a model
@@ -90,9 +91,12 @@ def _on_device(table: np.ndarray, cache: Dict, device) -> torch.Tensor:
 def _step_inputs(state, batch, draws, mesh=None, spatial: bool = False):
     """The batch on the student's device, the step's draws (the update count
     folded in; this rank's rows under a mesh, and its H block of them under
-    `spatial`) and the conditioning pair."""
-    device, batch, draws = _mesh_inputs(state, batch, draws, mesh, spatial)
-    return device, batch, draws.fold(state.step), (batch["masked_image"], batch["mask"])
+    `spatial`), the conditioning pair, and whether the step runs split over
+    the model axis (`spatial` and an image that was cut, see
+    `training.train_state._mesh_inputs`)."""
+    device, batch, draws, split = _mesh_inputs(state, batch, draws, mesh, spatial)
+    return (device, batch, draws.fold(state.step), (batch["masked_image"], batch["mask"]),
+            split)
 
 
 def _image_sums(x: torch.Tensor, spatial) -> torch.Tensor:
@@ -192,8 +196,8 @@ def make_distill_step(
         return a1 * x0 + s1 * eps
 
     def step(state, teacher, batch, draws):
-        device, batch, draws, cond = _step_inputs(state, batch, draws, mesh, spatial)
-        group = model_group(mesh) if spatial else None
+        device, batch, draws, cond, split = _step_inputs(state, batch, draws, mesh, spatial)
+        group = model_group(mesh) if split else None
         boundaries = _on_device(bounds_host, cache, device)
         x_start = batch["image"]
         B = x_start.shape[0]
@@ -209,7 +213,7 @@ def make_distill_step(
 
         nd = x_t.ndim
         a0, s0 = _alpha_sigma(sched, t0, nd)
-        with torch.no_grad(), _teacher(teacher, mesh, spatial) as teacher_module:
+        with torch.no_grad(), _teacher(teacher, mesh, split) as teacher_module:
             # frozen teacher: two DDIM steps
             x_mid = teacher_ddim_step(teacher_module, x_t, t0, t1, cond)
             x_two = teacher_ddim_step(teacher_module, x_mid, t1, t2, cond)
@@ -222,13 +226,13 @@ def make_distill_step(
 
         state.model.train()
         with gathered(state.model, state.params, state.specs, mesh), \
-                _model_axis(state, mesh, spatial):
+                _model_axis(state, mesh, split):
             raw = student_apply(state.model, x_t, t0, *cond)[..., :3]
             x0_s = _x0_from(raw, x_t, a0, s0, student_mean_type)
             sq = w * (x0_s - x0_target) ** 2
             loss = (sq.mean() if group is None
                     else _image_sums(sq, group).mean() / _image_size(sq, group))
-            grad_norm = _update(state, loss, mesh, spatial)
+            grad_norm = _update(state, loss, mesh, split)
         return state, {**_global_means({"loss": loss.detach()}, mesh), "grad_norm": grad_norm}
 
     return step

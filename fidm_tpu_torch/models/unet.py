@@ -15,6 +15,11 @@ the attention block's output projection, whose backward needs only its
 input, so there too the attention itself runs again: both policies launch
 the attention kernel once more per block in the backward.
 
+Under spatial partitioning (`parallel/tp.py`, the UNet's `model_axis`) the
+levels whose rows do not split into even blocks run whole on every rank:
+the activation entering the first such level is gathered whole, and the
+decoder takes this rank's rows again where it leaves them (`_whole_span`).
+
 `UNetConfig.split_decoder_skips` hands each decoder ResBlock its skip feature
 beside h instead of their concatenation (`layers.ResBlock.forward`); the
 modules, and so the state dict, are the same either way, and it composes with
@@ -177,6 +182,31 @@ class UNet(nn.Module):
                 h = layer(*args)
         return h
 
+    def _whole_span(self, split: Optional[int]):
+        """(gather_at, own_at) under spatial partitioning with `split`
+        levels split (`parallel.tp.check_spatial`): the input block after
+        which the activation is gathered whole, and the output block after
+        which this rank takes its rows again; (None, None) when every level
+        splits, or without the axis. Block 0 is the input conv; level l's
+        downsample is input block (l + 1) * per_level, and output block
+        (L - l) * per_level - 1 its decoder's upsample."""
+        n_levels = len(self.config.channel_mult)
+        if split is None or split >= n_levels:
+            return None, None
+        per_level = self.config.num_res_blocks + 1
+        return split * per_level, (n_levels - split) * per_level - 1
+
+    def whole_modules(self, split: int):
+        """The modules that run whole on every rank when `split` levels
+        split: the input blocks after the gather, the middle block and the
+        output blocks up to the one after which rows are taken again."""
+        gather_at, own_at = self._whole_span(split)
+        if gather_at is None:
+            return []
+        blocks = (list(self.input_blocks[gather_at + 1:]) + [self.middle_block]
+                  + list(self.output_blocks[:own_at + 1]))
+        return [m for block in blocks for m in block.modules()]
+
     def forward(self, x, timesteps, y=None, *, deterministic: bool = True, cache=None,
                 return_cache: bool = False, cache_depth: Optional[int] = None):
         """x: [B, H, W, C] NHWC; timesteps: [B]. Returns [B, H, W, out] float32,
@@ -209,8 +239,8 @@ class UNet(nn.Module):
             raise ValueError(
                 f"labels and num_classes must come together: y is "
                 f"{'set' if y is not None else 'None'} but num_classes={cfg.num_classes}")
-        if self.model_axis is not None:
-            self.model_axis.check(self, x)
+        ax = self.model_axis
+        gather_at, own_at = self._whole_span(None if ax is None else ax.check(self, x))
         dtype = cfg.dtype
         per_level = cfg.num_res_blocks + 1
         deep_cached = cache is not None and cache_depth is not None
@@ -224,9 +254,12 @@ class UNet(nn.Module):
         if cache is None or deep_cached:
             stop = cache_depth * per_level if deep_cached else len(self.input_blocks)
             h = conv(self.input_blocks[0][0], x.permute(0, 3, 1, 2).to(dtype))
-            hs = [h]
-            for block in self.input_blocks[1:stop]:
-                h = self._run(block, h, emb, deterministic)
+            hs = []
+            for i in range(stop):
+                if i:
+                    h = self._run(self.input_blocks[i], h, emb, deterministic)
+                if i == gather_at:  # the next level does not split: whole from here
+                    h = ax.gather(h)
                 hs.append(h)
             if not deep_cached:
                 h = self._run(self.middle_block, h, emb, deterministic)
@@ -250,6 +283,8 @@ class UNet(nn.Module):
             else:
                 h = self._run(self.output_blocks[i], torch.cat([h, hs.pop()], dim=1), emb,
                               deterministic)
+            if i == own_at:  # back at a level that splits: this rank's rows
+                h = ax.own_rows(h)
         assert not hs
 
         h = F.silu(self.out[0](h))

@@ -46,8 +46,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Shard
 
-from .mesh import (ModelShard, axis_size, batch_index, join_slices, local_slice, model_rank,
-                   row_ranks, rows_group)
+from .mesh import (HBlock, ModelShard, axis_size, batch_index, join_slices, local_slice,
+                   model_rank, row_ranks, rows_group)
 
 __all__ = ["Rows", "rank_rows", "RowDraws", "RowNoise", "mean_over_ranks", "gather_rows",
            "gathered", "release", "reduce_gradients", "global_grad_norm",
@@ -133,18 +133,6 @@ class RowNoise:
 
     def inject(self, timestep, shape):
         return self.rows.of(self.noise.inject(timestep, self._full(shape)))
-
-
-class HBlock(NamedTuple):
-    """Rows [lo, hi) of the H axis (axis 1 of NHWC) of `total`: a rank's
-    block under spatial partitioning."""
-
-    lo: int
-    hi: int
-    total: int
-
-    def of(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return x.narrow(dim, self.lo, self.hi - self.lo)
 
 
 def rank_hblock(mesh, local_h: int) -> HBlock:

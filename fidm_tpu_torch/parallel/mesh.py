@@ -21,7 +21,11 @@ with the dimension names ("data", "fsdp") names the ranks:
 The batch is split over the data and fsdp axes, the ranks at (d, f) taking
 chunk d * fsdp + f of every global batch, as the JAX package's
 `P(("data", "fsdp"))` splits it; `shard_batch(spatial=True)` also gives each
-rank of a model group its block of H rows of every image leaf.
+rank of a model group its block of H rows of every image leaf whose H
+divides by the axis size, and keeps the others whole. A dict batch records
+which it did under `H_BLOCKS` (the JAX package reads it from the arrays'
+shardings): a spatial step runs split over the axis on a split image and
+batch-only on one kept whole, as the JAX step does on that layout.
 
 Differences from the JAX package:
   - every rank of the process group must be in the mesh (a rank outside a
@@ -41,7 +45,7 @@ Differences from the JAX package:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +67,8 @@ __all__ = [
     "row_ranks",
     "rows_group",
     "model_rank",
+    "HBlock",
+    "H_BLOCKS",
     "ModelShard",
     "local_slice",
     "join_slices",
@@ -70,6 +76,9 @@ __all__ = [
 
 AXES = ("data", "fsdp")
 MODEL_AXES = ("data", "fsdp", "model")
+# the key under which `shard_batch(spatial=True)` and `spatial_block` record,
+# for each image-like leaf of a dict batch, the HBlock of H rows it holds
+H_BLOCKS = "h_blocks"
 
 # mesh -> the group of the ranks that share its model index (data x fsdp)
 _ROW_GROUPS: Dict = {}
@@ -267,13 +276,31 @@ def join_slices(slices, spec: ModelShard) -> torch.Tensor:
     return torch.cat(runs, dim=spec.dim + 1).flatten(spec.dim, spec.dim + 1)
 
 
+class HBlock(NamedTuple):
+    """Rows [lo, hi) of the H axis (axis 1 of NHWC) of `total`: a rank's
+    block under spatial partitioning, or (0, H, H) for an image kept whole."""
+
+    lo: int
+    hi: int
+    total: int
+
+    def of(self, x, dim: int = 1):
+        """These rows of `x` (a tensor or an array) along `dim`, as a view."""
+        return x[(slice(None),) * dim + (slice(self.lo, self.hi),)]
+
+    @property
+    def whole(self) -> bool:
+        return self.hi - self.lo == self.total
+
+
 def shard_batch(batch, mesh, spatial: bool = False, spatial_axis: str = "model"):
     """This rank's rows of a host batch that every rank holds whole (a dict
     of arrays or tensors, or one array): chunk `batch_index(mesh)` of the
     batch dimension. With `spatial=True` (and a `spatial_axis` of more than
     one rank) an image-like leaf (ndim >= 4, NHWC) whose H divides by that
     axis's size also keeps only block `model_rank(mesh)` of its H rows; every
-    other leaf keeps its rows only, as in the JAX package."""
+    other leaf keeps its rows only, as in the JAX package (see
+    `spatial_block`, which also records the layout)."""
     W, r = row_ranks(mesh), batch_index(mesh)
 
     def rows(x):
@@ -288,27 +315,38 @@ def shard_batch(batch, mesh, spatial: bool = False, spatial_axis: str = "model")
     return spatial_block(batch, mesh, spatial_axis) if spatial else batch
 
 
+def _image_like(x) -> bool:
+    return hasattr(x, "shape") and len(x.shape) >= 4
+
+
 def spatial_block(batch, mesh, axis: str = "model"):
     """The spatial half of `shard_batch(spatial=True)`: of rows this rank
     already holds (a dict, or one array or tensor), each image-like leaf
     (ndim >= 4, NHWC) whose H divides by the size of `axis` keeps block
-    `model_rank(mesh)` of its H rows; the rest stays as it is. `fit` cuts a
+    `model_rank(mesh)` of its H rows; the rest stays as it is. A dict also
+    gets `H_BLOCKS`: {leaf: HBlock} of every image-like leaf, (0, H, H) for
+    one kept whole, which a spatial step reads (a local H alone cannot tell
+    a whole image of H rows from a block of k·H). `fit` cuts a
     process-local loader's rows so for a spatial step."""
     n = axis_size(mesh, axis)
     if n <= 1:
         return batch
     m = mesh.get_coordinate()[list(mesh.mesh_dim_names).index(axis)]
 
-    def block(x):
-        if hasattr(x, "shape") and len(x.shape) >= 4 and x.shape[1] % n == 0:
-            h = x.shape[1] // n
-            return x[:, m * h:(m + 1) * h]
-        return x
+    def layout(x):
+        H = x.shape[1]
+        return HBlock(m * (H // n), (m + 1) * (H // n), H) if H % n == 0 else HBlock(0, H, H)
 
-    return _leaves(batch, block)
+    def block(x):
+        return layout(x).of(x) if _image_like(x) else x
+
+    out = _leaves(batch, block)
+    if isinstance(batch, dict):
+        out[H_BLOCKS] = {k: layout(v) for k, v in batch.items() if _image_like(v)}
+    return out
 
 
 def _leaves(batch, fn):
     if isinstance(batch, dict):
-        return {k: fn(v) for k, v in batch.items()}
+        return {k: v if k == H_BLOCKS else fn(v) for k, v in batch.items()}
     return fn(batch) if isinstance(batch, (np.ndarray, torch.Tensor)) else batch

@@ -46,9 +46,17 @@ one halo row from each neighbour first (`collectives.halo_rows`: the stride-2
 downsample and the convs after an upsample too), GroupNorm combines every
 rank's per-group mean and squared deviations (`collectives.gather_stats`),
 and attention gathers the normed tokens, runs on the whole sequence and keeps
-its rows. Each level's H must split into even blocks of at least one row
-(`check_spatial`: H divisible by size * 2^(levels - 1)); the JAX partitioner
-pads instead.
+its rows. The whole H must divide by the axis size. A level runs split while
+its rows make whole, even blocks (the last level: at least one row); at the
+first level that does not (`check_spatial` counts the split levels), the
+activation is gathered whole (`collectives.gather_h`, whose backward sums
+the gradient over the ranks and keeps this rank's block), that level, the
+deeper ones, the middle block and the decoder's matching levels run whole
+on every rank with no context, and the decoder takes this rank's block of
+rows again where it leaves them. A skip feature keeps the layout of the
+level that made it. The JAX partitioner pads the inner levels instead; the
+gather is exact and needs no pad rows that GroupNorm and the halos would
+have to skip.
 
 Deliberate differences from the JAX package:
   - the attention kernel runs under both layouts, on each rank's H/k heads
@@ -56,7 +64,8 @@ Deliberate differences from the JAX package:
     XLA's attention there, because its partitioner cannot split the custom
     call);
   - the per-part local layout above;
-  - spatial partitioning refuses uneven H blocks with a ValueError;
+  - spatial partitioning computes a level whose blocks would be odd or
+    uneven whole on every rank, where JAX pads it;
   - the collectives are all_reduce and all_gather only.
 
 `attach(model, mesh, mode, specs)` sets a context on the layers concerned
@@ -185,18 +194,30 @@ def spatial_sharding(mesh, axis: str = "model", shard_batch: bool = True) -> Tup
                  for a in names)
 
 
-def check_spatial(height: int, size: int, levels: int) -> None:
-    """ValueError unless an H of `height` splits into `size` blocks of
-    whole, even rows at every level but the last (which need one row at
-    least): the stride-2 convs and 2x2 pools work inside each block."""
-    step = size * 2 ** (levels - 1)
-    if height % step:
-        blocks = [f"{height >> lv}/{size}" for lv in range(levels)]
+def check_spatial(height: int, size: int, levels: int) -> int:
+    """The number of a UNet's levels, from the top, that run split when an
+    H of `height` rows is cut into `size` blocks: a level splits while its
+    rows make `size` whole blocks that are even (the stride-2 convs and 2x2
+    pools work inside each block), or at the last level at least one row.
+    The levels below run whole on every rank (`_Spatial`). ValueError where
+    `height` does not divide by `size` (the JAX package's jit refuses such
+    an input as well) or by 2^(levels - 1) (no UNet of `levels` levels
+    takes it)."""
+    if height % size:
         raise ValueError(
-            f"spatial partitioning: H={height} over {size} ranks at {levels} levels needs H "
-            f"divisible by {size} * 2^{levels - 1} = {step} (each level's block, "
-            f"{', '.join(blocks)} rows, whole and even above the last level); the JAX "
-            "package pads instead")
+            f"spatial partitioning: H={height} is not divisible by {size}, the size of the "
+            "'model' axis: H must divide by the axis size")
+    if height % 2 ** (levels - 1):
+        raise ValueError(
+            f"spatial partitioning: H={height} is not divisible by 2^{levels - 1}, which a "
+            f"UNet of {levels} levels needs")
+    split = 0
+    while split < levels:
+        rows = height >> split
+        if rows % size or (split < levels - 1 and rows // size % 2):
+            break
+        split += 1
+    return split
 
 
 # ------------------------------------------------------- the layers' context
@@ -277,15 +298,31 @@ class _Whole:
 class _Spatial:
     """The context of every module under spatial partitioning: halo rows
     for a 3x3 conv, GroupNorm over the whole image, attention on the whole
-    sequence, the UNet's check of its input."""
+    sequence; the UNet's check of its input, which also sets, for the call,
+    which of `modules` (those `attach` gave it) hold it: the modules of the
+    levels that do not split hold none and compute whole."""
 
-    def __init__(self, axis: C.ModelGroup):
-        self.axis = axis
+    def __init__(self, axis: C.ModelGroup, modules):
+        self.axis, self.modules = axis, modules
+        self.placed = None  # the split-level count the modules are placed for
 
-    def check(self, unet, x):
-        """`x`, the UNet's NHWC input, is this rank's block of H rows."""
-        check_spatial(x.shape[1] * self.axis.size, self.axis.size,
-                      len(unet.config.channel_mult))
+    def check(self, unet, x) -> int:
+        """`x`, the UNet's NHWC input, is this rank's block of H rows:
+        returns the number of levels that run split (`check_spatial`) and
+        takes the context from the modules of the others. The placement
+        holds until the next call, so a backward that recomputes a block
+        sees the forward's."""
+        split = check_spatial(x.shape[1] * self.axis.size, self.axis.size,
+                              len(unet.config.channel_mult))
+        if split != self.placed:
+            whole = set(unet.whole_modules(split))
+            for m in self.modules:
+                if m in whole:
+                    m.__dict__.pop("model_axis", None)
+                else:
+                    m.model_axis = self
+            self.placed = split
+        return split
 
     def conv(self, m, x, w, b):
         """A 3x3 conv with padding 1 on this rank's block of rows."""
@@ -310,12 +347,19 @@ class _Spatial:
 
     def gather(self, x):
         """Every rank's block of an NCHW `x`: the whole H (attention's
-        normed input)."""
+        normed input, and the activation entering the first level that does
+        not split)."""
         return C.gather_h(x, self.axis)
 
     def own(self, tokens, n: int):
         """This rank's `n` tokens of a whole sequence [B, S, ...]."""
         return tokens[:, self.axis.rank * n:(self.axis.rank + 1) * n]
+
+    def own_rows(self, x):
+        """This rank's block of the H rows of a whole NCHW `x` (the
+        decoder's activation leaving the levels that ran whole)."""
+        n = x.shape[2] // self.axis.size
+        return x[:, :, self.axis.rank * n:(self.axis.rank + 1) * n]
 
 
 _RESBLOCK_SPLIT = {"in_layers.2": _Column, "emb_layers.1": _Column,
@@ -364,11 +408,11 @@ def attach(model: nn.Module, mesh, mode: str, specs: Optional[Dict] = None):
     axis = C.model_group(mesh)
     held = {}
     if mode == "spatial":
-        ctx = _Spatial(axis)
-        for m in model.modules():
-            if isinstance(m, (UNet, ResBlock, AttentionBlock, GroupNorm32)) or (
-                    isinstance(m, nn.Conv2d) and m.kernel_size == (3, 3)):
-                held[m] = ctx
+        spatial = [m for m in model.modules()
+                   if isinstance(m, (UNet, ResBlock, AttentionBlock, GroupNorm32)) or (
+                       isinstance(m, nn.Conv2d) and m.kernel_size == (3, 3))]
+        ctx = _Spatial(axis, spatial)
+        held = dict.fromkeys(spatial, ctx)
     else:
         slices = {k: s for k, s in (specs or {}).items() if isinstance(s, ModelShard)}
         for prefix, m in model.named_modules():

@@ -20,10 +20,11 @@ the same call) `inpaint` takes the same whole batch on every rank, runs the
 model on this rank's rows only, with their noise cut from the whole batch's
 draws, and all-gathers the result, so every rank returns the one-process
 call's output. `fsdp_params` keeps the model's large tensors as this rank's
-shards between calls (ZeRO-3), gathered for each call. A meshed pipeline runs
-eagerly: `compile_batch` refuses it, because a program's noise buffers hold
-the draws of its own batch, not a rank's rows of a larger one, and the
-program cache (`serving/aot.py`) refuses it as the JAX package's does.
+shards between calls (ZeRO-3), gathered for each call. `compile_batch` builds
+the meshed call's program, whose noise buffers hold this rank's cut of the
+whole batch's draws (on CUDA an NCCL group's collectives captured in its
+graph); the program cache (`serving/aot.py`) refuses a mesh, as the JAX
+package's does.
 
 Over the mesh's "model" axis (`parallel/tp.py`): `tp_params` keeps this
 rank's Megatron slices of the model (with `fsdp_params`, fsdp shards of the
@@ -320,36 +321,56 @@ class InpaintingPipeline:
             if program is not None:
                 return program(gt, mask, noise.seed if noise.seeds is None else noise.seeds)
         if self.mesh is not None:
-            return self._inpaint_meshed(gt, mask, noise, cfg, cond_fn)
+            return self._inpaint_meshed(gt, mask, self._rank_noise(noise, gt.shape), cfg,
+                                        cond_fn)
         # a cond_fn may take a gradient, which inference tensors cannot give
         with torch.no_grad() if cond_fn is not None else torch.inference_mode():
             return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
                                   noise=noise, cache_apply=self._cache_apply(cfg),
                                   cond_fn=cond_fn)
 
-    def _inpaint_meshed(self, gt, mask, noise, cfg, cond_fn):
-        """This rank's rows of the whole batch (under shard_spatial its block
-        of their H rows, a `cond_fn` still seeing their whole images), their
-        noise cut from the whole batch's draws, then every rank's part
-        gathered."""
-        from .parallel.collectives import (HBlock, Rows, RowNoise, SpatialNoise, gather_h,
-                                           gather_rows, whole)
-        from .parallel.mesh import batch_index, row_ranks
+    def _rank_part(self, shape):
+        """(rows, block) of a meshed call on a whole batch of `shape`
+        [B, H, W, C]: this rank's Rows, and under shard_spatial its HBlock of
+        H rows (else None)."""
+        from .parallel.collectives import HBlock, Rows
+        from .parallel.mesh import axis_size, batch_index, model_rank, row_ranks
 
-        B, W = gt.shape[0], row_ranks(self.mesh)
+        B, H, W = shape[0], shape[1], row_ranks(self.mesh)
         if B % W:
             raise ValueError(f"batch {B} does not divide over the {W} ranks of the mesh")
         b, i = B // W, batch_index(self.mesh)
-        rows = Rows(i * b, (i + 1) * b, B)
-        gt, mask, noise = rows.of(gt), rows.of(mask), RowNoise(noise, rows)
+        rows, block = Rows(i * b, (i + 1) * b, B), None
         if self.shard_spatial:
-            from .parallel.collectives import model_group
             from .parallel.tp import check_spatial
 
-            ax, H = model_group(self.mesh), gt.shape[1]
-            check_spatial(H, ax.size, len(self.config.unet.channel_mult))
-            block = HBlock(ax.rank * H // ax.size, (ax.rank + 1) * H // ax.size, H)
-            gt, mask, noise = block.of(gt), block.of(mask), SpatialNoise(noise, block)
+            k, m = axis_size(self.mesh, "model"), model_rank(self.mesh)
+            check_spatial(H, k, len(self.config.unet.channel_mult))
+            block = HBlock(m * H // k, (m + 1) * H // k, H)
+        return rows, block
+
+    def _rank_noise(self, noise, shape):
+        """This rank's cut of the whole batch's draws of `noise`: its rows
+        (`RowNoise`) and under shard_spatial its block of H rows of them
+        (`SpatialNoise`)."""
+        from .parallel.collectives import RowNoise, SpatialNoise
+
+        rows, block = self._rank_part(shape)
+        noise = RowNoise(noise, rows)
+        return noise if block is None else SpatialNoise(noise, block)
+
+    def _inpaint_meshed(self, gt, mask, noise, cfg, cond_fn, device_tables=None):
+        """This rank's rows of the whole batch (under shard_spatial its block
+        of their H rows, a `cond_fn` still seeing their whole images), with
+        `noise` this rank's cut of the whole batch's draws (`_rank_noise`),
+        then every rank's part gathered: the whole batch on every rank."""
+        from .parallel.collectives import gather_h, gather_rows, model_group, whole
+
+        rows, block = self._rank_part(gt.shape)
+        gt, mask = rows.of(gt), rows.of(mask)
+        if block is not None:
+            ax = model_group(self.mesh)
+            gt, mask = block.of(gt), block.of(mask)
             if cond_fn is not None:
                 cond_fn = _whole_image_guidance(cond_fn, ax, block)
         with torch.no_grad() if cond_fn is not None else torch.inference_mode(), \
@@ -357,9 +378,9 @@ class InpaintingPipeline:
             with self._model_axis(model):
                 out = inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
                                      noise=noise, cache_apply=self._cache_apply(cfg),
-                                     cond_fn=cond_fn)
+                                     cond_fn=cond_fn, device_tables=device_tables)
             images, frames = out if isinstance(out, tuple) else (out, None)
-            if self.shard_spatial:  # the blocks of H rows: axis 1, or 2 of the frames
+            if block is not None:  # the blocks of H rows: axis 1, or 2 of the frames
                 images = gather_h(images, ax, dim=1)
                 frames = None if frames is None else gather_h(frames, ax, dim=2)
             images = gather_rows(images, self.mesh)
@@ -394,23 +415,44 @@ class InpaintingPipeline:
         a CUDA pipeline a captured CUDA graph of one `inpaint_sample` call,
         after one eager run on a side stream; a failed capture raises. On a
         CPU pipeline the same program without the graph. Install it with
-        `install_program`, or persist it with `serving.aot.save_programs`."""
-        if self.mesh is not None:
-            raise ValueError(
-                "compile_batch: a meshed pipeline runs eagerly (a program's noise "
-                "buffers hold the draws of its own batch, not a rank's rows of the "
-                "whole batch's draws)")
+        `install_program`, or persist it with `serving.aot.save_programs`.
+
+        Under a mesh (every rank builds it, and calls it, with the same
+        arguments) the program is the meshed call's: it takes the whole
+        batch, keeps this rank's rows (under shard_spatial its block of H
+        rows of them), fills its noise buffers with this rank's cut of the
+        whole batch's draws, runs, gathers, and returns the whole batch. On
+        CUDA the graph captures the collectives too, which only NCCL's can
+        be: a CUDA pipeline over another backend raises here. Under
+        fsdp_params the gather of the whole parameters is captured with the
+        rest, so the graph's pool keeps them whole between replays."""
         cfg = sampler or self.config.sampler
         self._validate_cache_cfg(cfg)
         gt, _, seed = self.example_inputs(batch, batched_key)
         cache_apply = self._cache_apply(cfg)
+        rank_noise = None
+        if self.mesh is not None:
+            import torch.distributed as dist
 
-        def run(gt, mask, noise, device_tables):
-            return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask, noise=noise,
-                                  cache_apply=cache_apply, device_tables=device_tables)
+            if self.device.type == "cuda" and dist.get_backend() != "nccl":
+                raise ValueError(
+                    f"compile_batch: a CUDA graph captures NCCL collectives only, and this "
+                    f"mesh runs over {dist.get_backend()!r}: call inpaint eagerly")
+            shape = tuple(gt.shape)
+
+            def rank_noise(noise):
+                return self._rank_noise(noise, shape)
+
+            def run(gt, mask, noise, device_tables):
+                return self._inpaint_meshed(gt, mask, noise, cfg, None, device_tables)
+        else:
+            def run(gt, mask, noise, device_tables):
+                return inpaint_sample(self._apply, self.sched, cfg, gt=gt, mask=mask,
+                                      noise=noise, cache_apply=cache_apply,
+                                      device_tables=device_tables)
 
         return SamplingProgram(run, _method_tables(self.sched, cfg), gt.shape, self.device,
-                               batched_key, seed)
+                               batched_key, seed, rank_noise)
 
     def install_program(self, batch: int, cfg: SamplerConfig, program: SamplingProgram,
                         batched_key: bool = False):

@@ -26,6 +26,9 @@ exactly the tensor `GeneratorNoise(seed)` gives for that (stream, index)
 (`GeneratorNoise.fill`; the draws stay outside the graph, since each seeds a
 fresh generator on the host), replays the graph and returns a clone of the
 output, so that the next replay cannot overwrite what a caller still holds.
+A meshed pipeline's program (`rank_noise`) holds this rank's cut of those
+draws, taken from the whole batch's as its eager call takes them, and its
+call gathers every rank's part inside the program.
 Every step of that is queued on the caller's current stream, in order. A
 replay runs the same kernels on the same values as the eager call, so it
 gives its output bit for bit. A replay adds to `ops.LAUNCHES` the launches its
@@ -42,7 +45,7 @@ from __future__ import annotations
 
 import collections
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -68,9 +71,8 @@ class _StaticNoise:
             if self.record is None:
                 raise RuntimeError(f"the program's call asked for draw {key}, which its "
                                    "recording run did not make")
-            buf = self.draws[key] = self.record.fill(
-                stream, index, torch.empty(tuple(shape), device=self.device,
-                                           dtype=torch.float32))
+            buf = self.draws[key] = _fill(self.record, stream, index, torch.empty(
+                tuple(shape), device=self.device, dtype=torch.float32))
         elif buf.shape != tuple(shape):
             raise RuntimeError(f"draw {key}: shape {tuple(shape)}, recorded {tuple(buf.shape)}")
         return buf
@@ -85,6 +87,18 @@ class _StaticNoise:
         return self._get(2, timestep, shape)
 
 
+def _fill(noise, stream: int, index: int, out: torch.Tensor) -> torch.Tensor:
+    """`out` filled with `noise`'s (stream, index) draw: a GeneratorNoise
+    writes it in place; another source (a rank's cut of one under a mesh)
+    draws it, and it is copied in."""
+    if isinstance(noise, GeneratorNoise):
+        return noise.fill(stream, index, out)
+    shape = tuple(out.shape)
+    draw = (noise.init(shape) if stream == 0 else
+            noise.step(index, shape) if stream == 1 else noise.inject(index, shape))
+    return out.copy_(draw)
+
+
 def _clone(out):
     return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
 
@@ -96,8 +110,11 @@ class SamplingProgram:
     sampler's host tables, `example_seed` the seed of the recording run."""
 
     def __init__(self, run: Callable, tables: Dict, gt_shape, device, batched_key: bool,
-                 example_seed):
+                 example_seed, rank_noise: Optional[Callable] = None):
         self.batched_key = batched_key
+        # GeneratorNoise -> the source the buffers hold the draws of (a
+        # meshed call's: this rank's cut of the whole batch's), or None
+        self._rank_noise = rank_noise
         self.device = torch.device(device)
         self.graph = None
         self.launches: collections.Counter = collections.Counter()
@@ -109,14 +126,15 @@ class SamplingProgram:
             self.tables = _to_device_xs(tables, self.device)
             self.draws: Dict[Tuple[int, int], torch.Tensor] = {}
             t0 = time.perf_counter()
-            self._record(GeneratorNoise(example_seed, self.device))
+            noise = GeneratorNoise(example_seed, self.device)
+            self._record(noise if rank_noise is None else rank_noise(noise))
             # seconds of the recording run, and of the capture
             self.record_s = time.perf_counter() - t0
             if self.device.type == "cuda":
                 self._capture()
             self.capture_s = time.perf_counter() - t0 - self.record_s
 
-    def _record(self, noise: GeneratorNoise):
+    def _record(self, noise):
         """The recording run: the call once, eagerly, over the buffers, each
         draw's buffer made and filled from `noise` when first asked for; on
         CUDA on a side stream."""
@@ -171,11 +189,13 @@ class SamplingProgram:
         if (noise.seeds is not None) != self.batched_key:
             layout = "per-row seeds" if self.batched_key else "one seed"
             raise ValueError(f"this program takes {layout}, got {seed!r}")
+        if self._rank_noise is not None:
+            noise = self._rank_noise(noise)
         with torch.inference_mode():
             self.gt.copy_(gt)
             self.mask.copy_(mask)
             for (stream, index), buf in self.draws.items():
-                noise.fill(stream, index, buf)
+                _fill(noise, stream, index, buf)
             if self.graph is None:
                 return _clone(self._run(_StaticNoise(self.draws, self.device)))
             self.graph.replay()

@@ -74,7 +74,9 @@ def program_path(cache_dir: str, pipeline, batch: int, sampler=None,
 def _no_mesh(pipeline):
     if getattr(pipeline, "mesh", None) is not None:
         raise ValueError("AOT program cache supports single-host pipelines "
-                         "only (mesh is not None)")
+                         "only (mesh is not None), as the JAX package's does; a meshed "
+                         "pipeline's programs are built by compile_batch on every rank "
+                         "and installed with install_program")
 
 
 def save_programs(pipeline, cache_dir: str, batch_sizes, sampler=None,

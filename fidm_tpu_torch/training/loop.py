@@ -10,7 +10,9 @@ loaders' `process_local` (and their `mesh`, so that the ranks of one model
 group read the same rows) when the process group has more than one rank, the
 steps reduce over the ranks, and `validate` returns the global mean, the same
 on every rank. A step built with `spatial=True` gets this rank's block of H
-rows of each batch (`parallel.mesh.spatial_block`).
+rows of each batch (`parallel.mesh.spatial_block`, which keeps an image
+whose H does not divide whole and records so; the step then runs
+batch-only on the model axis).
 """
 from __future__ import annotations
 

@@ -44,7 +44,11 @@ waits for the card (the loop reads them once per epoch).
   rank's); `make_train_step(spatial=True)` with a replicated state trains on
   this rank's block of H rows of its rows (`parallel.shard_batch(...,
   spatial=True)`), its draws that block of its rows' draws, the loss's sums
-  completed over the axis, and every gradient summed over it. LoRA runs
+  completed over the axis, and every gradient summed over it. A batch whose
+  image `shard_batch` kept whole (its H does not divide by the axis size:
+  the layout it records under `parallel.mesh.H_BLOCKS`) trains batch-only
+  on the axis, every rank of the group on the whole image, as the JAX step
+  does on that layout; an image of that H without the record raises. LoRA runs
   under both: over a tensor-parallel base (`TrainState.model_specs`) each
   rank adds its slice of every delta (`lora.lora_weights(..., specs,
   mesh)`), so the adapter's gradients are partial sums, summed over the
@@ -337,19 +341,49 @@ def _loss_for_batch(model, sched: DiffusionSchedule, batch, draws, *, loss_type,
 
 
 def _mesh_inputs(state, batch, draws, mesh, spatial: bool = False):
-    """The step's batch on the state's device and its draws; under a mesh
-    the draws are this rank's rows of the global batch's (and, `spatial`,
-    this rank's block of H rows of them)."""
+    """(device, batch, draws, spatial): the step's batch on the state's
+    device and its draws; under a mesh the draws are this rank's rows of
+    the global batch's. `spatial` comes back True where the batch's image
+    is this rank's block of H rows (`_spatial_layout`), whose block of the
+    draws is then cut; False where it was kept whole, and the step then
+    runs batch-only on the model axis, as the JAX step does on that
+    layout."""
     device = next(iter(state.params.values())).device
+    block = _spatial_layout(batch, mesh) if spatial else None
     batch = _device_batch(batch, device)
     draws = _as_draws(draws, device)
     if mesh is not None:
-        from ..parallel.collectives import RowDraws, SpatialDraws, rank_hblock, rank_rows
+        from ..parallel.collectives import RowDraws, SpatialDraws, rank_rows
 
         draws = RowDraws(draws, rank_rows(mesh, batch["image"].shape[0]))
-        if spatial:
-            draws = SpatialDraws(draws, rank_hblock(mesh, batch["image"].shape[1]))
-    return device, batch, draws
+        if block is not None:
+            draws = SpatialDraws(draws, block)
+    return device, batch, draws, block is not None
+
+
+def _spatial_layout(batch, mesh):
+    """The HBlock of H rows that a spatial step's image holds, or None
+    where it is the whole image (kept whole by `shard_batch` or
+    `spatial_block`, which record the layout under `H_BLOCKS`). Without the
+    record a local H that divides by the axis size can only be a block (a
+    whole image of that H would have been cut); one that does not is
+    ambiguous (a whole image, or a block of k·H) and raises."""
+    from ..parallel.collectives import rank_hblock
+    from ..parallel.mesh import H_BLOCKS, axis_size
+
+    H, k = batch["image"].shape[1], axis_size(mesh, "model")
+    block = batch.get(H_BLOCKS, {}).get("image")
+    if block is None:
+        if H % k:
+            raise ValueError(
+                f"a spatial step got an image of {H} rows with no record of its layout over "
+                f"the {k} ranks of the 'model' axis: it may be a whole image or a block of "
+                f"{k * H} rows; cut the batch with parallel.shard_batch(..., spatial=True) or "
+                "parallel.mesh.spatial_block")
+        return rank_hblock(mesh, H)
+    if block.hi - block.lo != H:
+        raise ValueError(f"the batch's image has {H} rows, its recorded layout {block}")
+    return None if block.whole else block
 
 
 def _check_specs(state, mesh):
@@ -381,7 +415,8 @@ def _model_specs(state):
 
 def _model_axis(state, mesh, spatial: bool):
     """The model-axis context of a step's forward and backward (`tp.attach`,
-    or nothing): "tp" for a model of slices, "spatial" for spatial=True."""
+    or nothing): "tp" for a model of slices, "spatial" where the step runs
+    split (`spatial`: `_mesh_inputs`' flag)."""
     from ..parallel.collectives import model_sharded_names
 
     specs = _model_specs(state)
@@ -492,8 +527,11 @@ def make_train_step(
     under both: tensor-parallel, the state holds the adapter with
     `model_specs` the frozen base's slices, and `param_transform` must hand
     each rank its slice of every delta (`lora.lora_weights(model, cfg, l,
-    specs, mesh)`); spatial, the base is whole. The returned step's
-    `spatial` attribute tells `fit` to cut its H blocks.
+    specs, mesh)`); spatial, the base is whole. A spatial step on an image
+    kept whole (`H_BLOCKS`) runs batch-only on the model axis: no block of
+    the draws, no spatial context, no sum of the gradients over the axis.
+    The returned step's `spatial` attribute tells `fit` to cut its H
+    blocks.
 
     Metrics, as device tensors (global means under a mesh): loss, mse,
     grad_norm (before the clip), mask_coverage, and vb when the loss has it."""
@@ -528,18 +566,18 @@ def make_train_step(
     def step(state: TrainState, batch, draws):
         from ..parallel.collectives import gathered, model_group
 
-        spatial_group = model_group(mesh) if spatial else None
         sharded = set(_check_specs(state, mesh))
         if sharded and param_transform is not None:
             raise ValueError("fsdp-sharded trained tensors with param_transform: shard "
                              "only the model's own parameters")
-        device, batch, draws = _mesh_inputs(state, batch, draws, mesh, spatial)
+        device, batch, draws, split = _mesh_inputs(state, batch, draws, mesh, spatial)
+        spatial_group = model_group(mesh) if split else None
         draws = draws.fold(state.step)
         state.model.train()
         names = list(state.params)
 
         with gathered(state.model, state.params, state.specs, mesh), \
-                _model_axis(state, mesh, spatial):
+                _model_axis(state, mesh, split):
             model_params = dict(state.model.named_parameters()) if sharded else {}
             leaves = [model_params[k] if k in sharded else state.params[k] for k in names]
 
@@ -569,7 +607,7 @@ def make_train_step(
                 torch._foreach_mul_(grads, inv)
                 loss = loss * inv
                 terms = {k: v * inv for k, v in terms.items()}
-        grad_norm = _reduce_and_apply(state, names, grads, mesh, spatial)
+        grad_norm = _reduce_and_apply(state, names, grads, mesh, split)
         if ema_decay is not None and state.ema_params is not None:
             from .ema import update_ema
 
@@ -620,9 +658,9 @@ def make_eval_step(
         from ..parallel.collectives import gathered, model_group
 
         _check_specs(state, mesh)
-        device, batch, draws = _mesh_inputs(state, batch, draws, mesh, spatial)
+        device, batch, draws, split = _mesh_inputs(state, batch, draws, mesh, spatial)
         with gathered(state.model, state.params, state.specs, mesh), \
-                _model_axis(state, mesh, spatial):
+                _model_axis(state, mesh, split):
             overrides = param_transform(state.params) if param_transform is not None else {}
             with weight_overrides(overrides):
                 loss, terms = _loss_for_batch(
@@ -631,7 +669,7 @@ def make_eval_step(
                     use_injection=use_injection, injection_schedule=injection_schedule,
                     vb_weight=vb_weight, loss_weight=loss_weight,
                     loss_weight_gamma=loss_weight_gamma, use_labels=use_labels,
-                    spatial=model_group(mesh) if spatial else None)
+                    spatial=model_group(mesh) if split else None)
         return _global_means({"loss": loss, "mse": terms.get("mse", loss)}, mesh)
 
     step.spatial = spatial

@@ -657,6 +657,51 @@ def test_one_rank_nccl_mesh_step_is_the_unmeshed_step(cuda, masked):
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
 
 
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_one_rank_mesh_program_on_the_card(cuda, backend):
+    """A meshed pipeline's program in a one-rank group: over NCCL a CUDA
+    graph whose replay, through `inpaint`, is the meshed eager call and the
+    unmeshed call bit for bit, with and without fsdp_params; over gloo on
+    CUDA tensors `compile_batch` raises (a graph captures NCCL collectives
+    only) and the eager call still runs."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fidm_tpu_torch.parallel import create_mesh
+
+    sampler = SamplerConfig(method="ddim", num_steps=6, eta=0.9, injection=True)
+    plain, gt, mask = _small_pipeline(sampler)
+    ref = plain.inpaint(gt, mask, 4)
+    n_attn = sum(isinstance(m, AttentionBlock) for m in plain.model.modules())
+    per_call = n_attn * len(_method_tables(plain.sched, sampler)["t"])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = create_mesh(data=1, fsdp=1)
+        for kw in (dict(), dict(fsdp_params=True, fsdp_min_size=1024)):
+            pipe = InpaintingPipeline(plain.model, plain.sched, plain.config, mesh=mesh, **kw)
+            eager = pipe.inpaint(gt, mask, 4)
+            assert torch.equal(eager, ref)
+            if backend == "gloo":
+                with pytest.raises(ValueError, match="NCCL collectives only"):
+                    pipe.compile_batch(2)
+                continue
+            program = pipe.compile_batch(2)
+            assert isinstance(program.graph, torch.cuda.CUDAGraph)
+            pipe.install_program(2, sampler, program)
+            before = LAUNCHES["attention"]
+            out = pipe.inpaint(gt, mask, 4)
+            torch.cuda.synchronize()
+            assert LAUNCHES["attention"] - before == per_call
+            assert torch.equal(out, eager)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_native_normalize_matches_numpy_on_card_inputs(cuda):
     """The C++ normalize and compose against numpy on a 256² batch of 4, as
     the tensors the card receives: equal but for the last bit."""

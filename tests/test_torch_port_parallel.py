@@ -203,10 +203,14 @@ def _tiny_pipeline(**kw):
         device="cpu", **kw)
 
 
-def test_pipeline_tp_and_spatial_refused():
+def test_pipeline_tp_and_spatial_refused(group):
     """JAX's two ValueErrors come first; with a 'model' axis both layouts
     build: tp_params keeps this rank's slices (qkv: its heads of q, k and
-    v), and a meshed pipeline still refuses compile_batch."""
+    v). A meshed pipeline's compile_batch builds the meshed call's program,
+    equal to the eager call bit for bit (over two ranks of the 'model' axis
+    in tests/test_torch_port_mesh_programs.py); under shard_spatial it
+    refuses an H that does not divide by the axis size, as JAX's jit
+    refuses that input."""
     with pytest.raises(ValueError, match="pick one"):
         _tiny_pipeline(tp_params=True, shard_spatial=True)
     for kw in (dict(tp_params=True), dict(shard_spatial=True)):
@@ -217,10 +221,14 @@ def test_pipeline_tp_and_spatial_refused():
     c = whole.shape[0] // 3
     want = torch.cat([whole[i * c + c // 2:(i + 1) * c] for i in range(3)])
     assert torch.equal(pipe.model.middle_block[1].qkv.weight, want)
-    spatial = _tiny_pipeline(mesh=_model_stub(), shard_spatial=True)
-    for p in (pipe, spatial):
-        with pytest.raises(ValueError, match="runs eagerly"):
-            p.compile_batch(2)
+    spatial = _tiny_pipeline(mesh=_model_stub(k=3), shard_spatial=True)
+    with pytest.raises(ValueError, match="H=16 is not divisible by 3.*must divide by the axis"):
+        spatial.compile_batch(2)
+    gt, mask = _batch(b=2)["image"].clip(-1, 1), _batch(b=2)["mask"]
+    meshed = _tiny_pipeline(seed=3, mesh=group)
+    program = meshed.compile_batch(2)
+    out = program(torch.from_numpy(gt), torch.from_numpy(mask), 4)
+    assert torch.equal(out, meshed.inpaint(gt, mask, 4))
 
 
 def test_program_cache_refuses_a_mesh(tmp_path):
@@ -336,9 +344,13 @@ def test_one_rank_mesh_inpaint_is_the_unmeshed_call(group):
     for kw in (dict(), dict(fsdp_params=True, fsdp_min_size=1024)):
         pipe = _tiny_pipeline(seed=3, mesh=group, **kw)
         assert torch.equal(pipe.inpaint(gt, mask, 4), ref)
-        assert torch.equal(pipe.inpaint(gt, mask, [4, 5]), plain.inpaint(gt, mask, [4, 5]))
-        with pytest.raises(ValueError, match="runs eagerly"):
-            pipe.compile_batch(2)
+        rows = pipe.inpaint(gt, mask, [4, 5])
+        assert torch.equal(rows, plain.inpaint(gt, mask, [4, 5]))
+        # the meshed call's programs, installed: inpaint replays them
+        for batched, seed, want in ((False, 4, ref), (True, [4, 5], rows)):
+            pipe.install_program(2, pipe.config.sampler,
+                                 pipe.compile_batch(2, batched_key=batched), batched)
+            assert torch.equal(pipe.inpaint(gt, mask, seed), want)
         with pytest.raises(ValueError, match="single-host"):
             aot.save_programs(pipe, "unused", [2])
 
