@@ -11,6 +11,8 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["LossScaleState", "init_loss_scale", "scale_loss", "unscale_grads"]
 
 
@@ -23,7 +25,9 @@ class LossScaleState(NamedTuple):
 
 
 def init_loss_scale(initial: float = 2.0**15, growth_interval: int = 2000,
-                    device="cpu") -> LossScaleState:
+                    device="cuda") -> LossScaleState:
+    """The state on `device` (the card unless the caller names another)."""
+    device = resolve_device(device)
     return LossScaleState(
         scale=torch.tensor(initial, dtype=torch.float32, device=device),
         growth_counter=torch.tensor(0, dtype=torch.int32, device=device),

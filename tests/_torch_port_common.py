@@ -4,12 +4,14 @@ A small float32 UNet configuration in both packages, the JAX package's
 parameters for it with every leaf perturbed (so that the zero-initialised
 output convs do not make the output identically 0), or drawn from numpy
 without compiling the JAX init, noise sources that replay the JAX samplers'
-key draws for the port's samplers, and a closed-form stand-in for the UNet
-written once for both packages.
+key draws for the port's samplers, a closed-form stand-in for the UNet
+written once for both packages, and the fixture that pins a test module to
+one torch and one BLAS thread.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fidm_tpu.models import InpaintingUNet as JaxInpaintingUNet
@@ -23,6 +25,22 @@ SMALL = dict(image_size=16, in_channels=9, model_channels=32, out_channels=6,
              resblock_updown=True)
 JCFG = JaxUNetConfig(**SMALL, dtype=jnp.float32)
 PCFG = UNetConfig(**SMALL, dtype=torch.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread (and one BLAS thread) for the module that imports
+    this fixture. The models here are tiny, and the test run shares the CPU
+    between its workers, where torch's default pool of one thread per core
+    spins against the other workers (a 101-step cached preset took 125 s
+    instead of 18)."""
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(threads)
 
 
 def perturbed_jax_variables(cfg=JCFG, seed=0, scale=0.05):

@@ -220,6 +220,31 @@ def test_attention_backward_launches_no_kernel(cuda, dtype):
         assert torch.equal(g, r)
 
 
+def test_loss_scale_defaults_to_the_card(cuda):
+    """`init_loss_scale()` builds its state on the card, and `unscale_grads`
+    on CUDA gradients gives the CPU state's result: the same scale, counter,
+    finite flag and unscaled gradients, through a growth and an overflow."""
+    from fidm_tpu_torch.training import precision
+
+    ours = precision.init_loss_scale(8.0, growth_interval=2)
+    ref = precision.init_loss_scale(8.0, growth_interval=2, device="cpu")
+    assert ours.scale.device.type == ours.growth_counter.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    for i, bad in enumerate((False, False, True, False)):
+        g = {"a": torch.from_numpy(rng.standard_normal((3,)).astype(np.float32)),
+             "b": torch.from_numpy(rng.standard_normal((2, 2)).astype(np.float32))}
+        if bad:
+            g["b"][0, 1] = float("inf")
+        ours, og, ofin = precision.unscale_grads(ours, {k: v.to(cuda) for k, v in g.items()})
+        ref, rg, rfin = precision.unscale_grads(ref, g)
+        assert ofin.device.type == "cuda" and bool(ofin) == bool(rfin) == (not bad), i
+        assert float(ours.scale) == float(ref.scale), i
+        assert int(ours.growth_counter) == int(ref.growth_counter), i
+        if not bad:
+            for k in g:
+                assert torch.equal(og[k].cpu(), rg[k]), (i, k)
+
+
 def test_small_train_step_on_the_card(cuda):
     """A bf16 train step of a small UNet: the kernel once per attention block
     in the forward, none in the backward, and the same loss and gradient

@@ -10,6 +10,10 @@ bit-equal too. The two normalizations differ from each other in the last bit
 of a float32 in [-1, 1] (the kernel computes u8 * (2/255) - 1, numpy
 u8 / 255 * 2 - 1), so a port on one path is never held against JAX on the
 other.
+
+Where a case holds the port's default against `fidm_tpu`'s, it takes
+`fidm_tpu`'s libraries from `jax_native` (`_torch_port_native_ref`), built
+for this process: never `fidm_tpu`'s quiet numpy or PIL fallback.
 """
 import json
 
@@ -37,6 +41,8 @@ from fidm_tpu_torch.data import (
     random_mask,
 )
 from fidm_tpu_torch.data.shards import ShardReader
+
+from _torch_port_native_ref import jax_native  # noqa: F401
 
 SIZE = 24
 
@@ -84,7 +90,7 @@ def test_random_mask_is_the_numpy_path(kind):
         random_mask(np.random.default_rng(0), 8, kind="blob")
 
 
-def test_mask_files_and_arrays(data_tree):
+def test_mask_files_and_arrays(jax_native, data_tree):
     _, mask_root = data_tree
     gray = np.random.default_rng(1).uniform(size=(8, 8)).astype(np.float32)
     np.testing.assert_array_equal(mask_from_array(gray), jax_masks.mask_from_array(gray))
@@ -92,7 +98,7 @@ def test_mask_files_and_arrays(data_tree):
         np.testing.assert_array_equal(load_mask(path, SIZE), jax_masks.load_mask(path, SIZE))
 
 
-def test_listing_and_image_loading(data_tree):
+def test_listing_and_image_loading(jax_native, data_tree):
     img_dir, _ = data_tree
     images = list_images(img_dir)
     assert images == jax_dataset.list_images(img_dir) and len(images) == 7
@@ -103,7 +109,7 @@ def test_listing_and_image_loading(data_tree):
         np.testing.assert_array_equal(ours, jax_dataset.load_image(path, SIZE))
 
 
-def test_packed_shards_bit_equal_to_jax(data_tree, tmp_path):
+def test_packed_shards_bit_equal_to_jax(jax_native, data_tree, tmp_path):
     img_dir, _ = data_tree
     ours = pack_dataset(img_dir, tmp_path / "ours", img_size=SIZE, shard_size=3)
     ref = jax_shards.pack_dataset(img_dir, tmp_path / "ref", img_size=SIZE, shard_size=3)
@@ -142,7 +148,8 @@ def _assert_items_equal(ours, ref, atol):
 
 @pytest.mark.parametrize("source", ["png", "packed"])
 @pytest.mark.parametrize("mode", ["serial", "ordered", "random"])
-def test_dataset_items_match_jax(data_tree, tmp_path, monkeypatch, source, mode):
+def test_dataset_items_match_jax(jax_native, data_tree, tmp_path, monkeypatch, source,
+                                 mode):
     img_dir, mask_root = data_tree
     data_dir = img_dir if source == "png" else _packed(data_tree, tmp_path)
     ours = InpaintingDataset(data_dir, mask_root, "test", SIZE, mode, seed=3)
@@ -159,7 +166,7 @@ def test_dataset_items_match_jax(data_tree, tmp_path, monkeypatch, source, mode)
     _assert_items_equal(ours, ref, atol=0)
 
 
-def test_procedural_items(data_tree, monkeypatch):
+def test_procedural_items(jax_native, data_tree, monkeypatch):
     """Item i's mask is `random_mask` from a generator seeded with
     seed * 1_000_003 + i; both packages draw a seed for their C++
     rasterizer from that generator, so the items are `fidm_tpu`'s bit for
@@ -180,7 +187,7 @@ def test_procedural_items(data_tree, monkeypatch):
         InpaintingDataset(img_dir, None, "", SIZE, "serial")
 
 
-def test_loaders_match_jax(data_tree):
+def test_loaders_match_jax(jax_native, data_tree):
     img_dir, mask_root = data_tree
     ours = create_inference_dataloader(img_dir, mask_root, batch_size=2, img_size=SIZE,
                                        num_samples=5, seed=1)

@@ -14,6 +14,10 @@ distance is held on the features each CLI extracted. The other evaluate
 branches run the port alone and are held to what they must equal;
 `fid_stats` and `pack_data` run in both packages. Torch runs on one
 intra-op thread here.
+
+The flag parsing and the host helpers are in
+`test_torch_port_evaluate_flags.py`: port test files hold at most 25 cases
+(ROADMAP.md).
 """
 import dataclasses
 import functools
@@ -42,37 +46,20 @@ from fidm_tpu_torch.cli import fid_stats as port_fid_stats
 from fidm_tpu_torch.cli import pack_data as port_pack_data
 from fidm_tpu_torch.metrics import fid as port_fid
 
-from _torch_port_common import JaxKeyNoise
+from _torch_port_common import JaxKeyNoise, one_torch_thread  # noqa: F401
+from _torch_port_evaluate_common import MODEL, _fid_closed_form, REQUIRED
 from oracle_fid_inception import FIDInceptionOracle
 from oracle_fid_inception import randomize as randomize_inception
 from oracle_lpips import LPIPSOracle
 from oracle_lpips import randomize as randomize_lpips
 
+
 SIZE = 32
 SHAPE = dict(image_size=SIZE, model_channels=32, channel_mult=(1, 2), num_heads=2,
              num_head_channels=16, attention_resolutions=(2,))
-MODEL = ["--image_size", "32", "--model_channels", "32", "--channel_mult", "1", "2",
-         "--num_heads", "2", "--num_head_channels", "16", "--attention_resolutions", "2"]
 RUN = ["--quick_test", "--diffusion_steps", "100", *MODEL]
 N_IMAGES = 8
 N_FAKE = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The models here are tiny, and the test run shares the CPU between its
-    workers, where torch's default pool of one thread per core spins against
-    the other workers: one intra-op thread for this module. The same for
-    BLAS: scipy's sqrtm of a 2048² covariance took 20 s of wall and 47 s of
-    CPU on eight threads, 34 s of both on one, and its threads slowed the
-    other workers' files."""
-    from threadpoolctl import threadpool_limits
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(threads)
 
 
 def _brush(rng, size):
@@ -196,25 +183,9 @@ def _spy(mp, module, name, calls, result=None):
 # beside the test run's other workers several times that, enough to push
 # the whole run past its time limit. The distance is taken instead from the features each CLI
 # extracted, by `_fid_closed_form`; `frechet_distance` itself is the JAX
-# package's code, held equal to it in test_torch_port_metrics.py, and
+# package's code, held equal to it in test_torch_port_metrics_fid.py, and
 # `chip_smoke.py` [8] runs it at 2048² on the card's host.
 FID_RECORDED = 7.5
-
-
-def _fid_closed_form(real, fake):
-    """The Frechet distance of two feature sets with the sqrtm term in closed
-    form: with S = AᵀA (A the centred features over sqrt(n - 1)), tr sqrt(S1
-    S2) is the sum of the singular values of A1 A2ᵀ, an n1 × n2 matrix. Exact
-    at any dimension; scipy's sqrtm of the singular 2048² product came within
-    7.7e-7 of it."""
-    def centred(f):
-        f = np.asarray(f, np.float64)
-        return f.mean(0), (f - f.mean(0)) / np.sqrt(len(f) - 1)
-
-    (mu1, a1), (mu2, a2) = centred(real), centred(fake)
-    diff = mu1 - mu2
-    return float(diff @ diff + (a1**2).sum() + (a2**2).sum()
-                 - 2 * np.linalg.svd(a1 @ a2.T, compute_uv=False).sum())
 
 
 @pytest.fixture(scope="module")
@@ -242,80 +213,6 @@ def parity_runs(data_tree, checkpoint, weights, tmp_path_factory):
         runs.update({pkg: _metrics_json(root / pkg), f"{pkg}_dir": root / pkg,
                      f"{pkg}_fd": fd[0], f"{pkg}_feats": kid[0][:2]})
     return runs
-
-
-# --------------------------------------------------------------- arguments
-
-ARGVS = [
-    [],
-    ["--preset", "ddim-50", "--eta", "0.3", "--ddim_timesteps", "20", "--seed", "7"],
-    ["--preset", "ddim-100-deep", "--encoder_cache_tail", "5", "--batch_size", "2"],
-    ["--encoder_cache", "3", "--cache_branch", "1", "--cache_keysteps", "17@1.0:2.0"],
-    ["--no_injection", "--injection_schedule", "high", "--no_blend", "--time_spacing",
-     "trailing", "--schedule", "linear", "--diffusion_steps", "500"],
-    ["--timesteps", "999", "500", "0", "--mean_type", "velocity", "--quantize", "int8"],
-    ["--preset", "dpm-25-sde", "--quick_test", "--no_save_images", "--dtype", "f32"],
-    ["--fid_weights", "w.pth", "--fid_stats", "s.npz", "--lpips_alexnet", "a.pth",
-     "--lpips_lin", "l.pt", "--checkpoint", "m.npz", *MODEL],
-    ["--preset", "repaint-100-light", "--jump_length", "4", "--save_trajectory", "5"],
-    ["--preset", "unipc-20", "--quick_test", "--save_trajectory", "3"],
-]
-ARGV_IDS = ["defaults", "ddim-50", "deep-tail", "keysteps", "injection", "student",
-            "quick", "metrics", "repaint-trajectory", "unipc-trajectory"]
-REQUIRED = ["--data_dir", "d", "--mask_dir", "m"]
-
-
-@pytest.mark.parametrize("argv", ARGVS, ids=ARGV_IDS)
-def test_parse_args_matches_jax(argv):
-    ours = vars(port_evaluate.parse_args(REQUIRED + argv))
-    assert ours.pop("device") == "cuda"
-    assert ours == vars(jax_evaluate.parse_args(REQUIRED + argv))
-
-
-def test_parse_args_config_defaults_match_jax(tmp_path):
-    """A --config JSON sets defaults; flags on the command line win."""
-    cfg = tmp_path / "eval.json"
-    cfg.write_text(json.dumps({"preset": "ddim-50", "batch_size": 2, "eta": 0.5}))
-    argv = REQUIRED + ["--config", str(cfg), "--eta", "0.1"]
-    ours = vars(port_evaluate.parse_args(argv))
-    ours.pop("device")
-    assert ours == vars(jax_evaluate.parse_args(argv))
-    assert (ours["preset"], ours["batch_size"], ours["eta"]) == ("ddim-50", 2, 0.1)
-
-
-class _Built(Exception):
-    """Raised in place of building the JAX pipeline, carrying its config."""
-
-
-@pytest.mark.parametrize("argv", [a for a in ARGVS if "--checkpoint" not in a],
-                         ids=[i for a, i in zip(ARGVS, ARGV_IDS) if "--checkpoint" not in a])
-def test_sampler_flags_match_jax(argv, monkeypatch):
-    """The sampler the port builds from the flags equals the one the JAX CLI
-    hands its pipeline (its `create` is stopped there), field by field."""
-    from fidm_tpu import pipeline as jax_pipeline
-
-    def stop(config=None, **kw):
-        raise _Built(config)
-
-    monkeypatch.setattr(jax_pipeline.InpaintingPipeline, "create", staticmethod(stop))
-    with pytest.raises(_Built) as built:
-        jax_evaluate.main(REQUIRED + argv)
-    ref = dataclasses.asdict(built.value.args[0].sampler)
-    args = port_evaluate.parse_args(REQUIRED + argv)
-    if args.quick_test:  # main applies it before the sampler is built
-        args.ddim_timesteps = args.ddim_timesteps or 10
-    ours = dataclasses.asdict(port_evaluate.build_sampler(args))
-    for k in ("mean_type", "var_type"):
-        assert ours.pop(k).name == ref.pop(k).name, k
-    assert ours == ref
-
-
-def test_cache_keysteps_refused_as_in_jax():
-    argv = REQUIRED + ["--preset", "consistency-2", "--cache_keysteps", "0,1"]
-    with pytest.raises(SystemExit, match="not supported with method='consistency'"):
-        jax_evaluate.main(argv)
-    with pytest.raises(SystemExit, match="not supported with method='consistency'"):
-        port_evaluate.main(argv + ["--device", "cpu"])
 
 
 # ----------------------------------------------------------- whole-CLI parity
@@ -390,19 +287,6 @@ def test_metrics_json_matches_jax(parity_runs):
     assert ours["kid_mean"] == pytest.approx(
         ref["kid_mean"], rel=_witness_bound(_kid, feats, ref_feats))
     assert ours["kid_std"] == ref["kid_std"] == 0.0  # 8 samples: one exact MMD²
-
-
-@pytest.mark.parametrize("n,dim", [(40, 16), (8, 64)], ids=["full-rank", "singular"])
-def test_fid_closed_form_equals_frechet_distance(n, dim):
-    """The closed form against the CLIs' `frechet_distance` (scipy's sqrtm):
-    to rounding at full rank, within scipy's approximation (1e-6
-    relative) where the covariances are singular, as with 8 samples."""
-    rng = np.random.default_rng(n)
-    real = rng.standard_normal((n, dim))
-    fake = rng.standard_normal((n, dim)) * 1.2 + 0.3
-    tol = 1e-9 if n > dim else 1e-6
-    assert _fid_closed_form(real, fake) == pytest.approx(
-        port_metrics.fid_from_features(real, fake), rel=tol)
 
 
 def _pngs(directory):
@@ -565,7 +449,7 @@ def test_evaluate_empty_mask_samples_stay_aligned(tmp_path):
 def test_unported_branches_raise_before_building(data_tree, tmp_path, monkeypatch):
     """A checkpoint directory without a checkpoint raises FileNotFoundError
     before a model is built (training checkpoint directories are read since
-    training was ported: tests/test_torch_port_training.py); `--fid_stats`
+    training was ported: tests/test_torch_port_training_cli.py); `--fid_stats`
     without `--fid_weights` raises ValueError as in JAX. (`--save_trajectory`
     and the repaint and unipc presets run since the rest of sampling was
     ported: test_save_trajectory_and_the_new_presets; `--program_cache` since
@@ -757,29 +641,3 @@ def test_pack_data_matches_jax_and_feeds_evaluate(data_tree, checkpoint, bf16_ru
                            "--checkpoint", checkpoint)
     assert packed["per_sample"] == bf16_run["per_sample"]
     assert packed["fid_proxy"] == bf16_run["fid_proxy"]
-
-
-def test_step_timer_and_image_helpers_match_jax(tmp_path):
-    """`to_uint8`, `save_png` and `save_comparison_grid` are copies of the
-    JAX package's (the same bytes on disk); `StepTimer` keeps its API and
-    waits for nothing on CPU tensors; `trace` writes a profiler trace."""
-    from fidm_tpu import utils as jax_utils
-    from fidm_tpu_torch import utils as port_utils
-
-    rng = np.random.default_rng(1)
-    img = rng.uniform(-1.2, 1.2, (16, 16, 3)).astype(np.float32)
-    np.testing.assert_array_equal(port_utils.to_uint8(img), jax_utils.to_uint8(img))
-    rows = [[port_utils.to_uint8(img), (img[..., :1] > 0).astype(np.uint8) * 255]] * 2
-    port_utils.save_comparison_grid(rows, str(tmp_path / "p" / "grid.png"))
-    jax_utils.save_comparison_grid(rows, str(tmp_path / "j" / "grid.png"))
-    assert (tmp_path / "p" / "grid.png").read_bytes() == (tmp_path / "j" / "grid.png").read_bytes()
-    timer = port_utils.StepTimer()
-    assert timer.summary() == "no steps timed"
-    for _ in range(2):
-        timer.start()
-        timer.stop(torch.zeros(2))
-    assert len(timer.times) == 2 and timer.mean >= 0
-    assert timer.summary(per=2).startswith("2 steps, mean ")
-    with port_utils.trace(str(tmp_path / "trace")):
-        torch.ones(4) + 1
-    assert list((tmp_path / "trace").glob("*.json"))

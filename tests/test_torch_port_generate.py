@@ -7,9 +7,10 @@ images are the port's own `sample()` on the same model and noise (each
 batch's `GeneratorNoise` from the seed and the batch's offset: the JAX CLI
 folds the offset into a threefry key, which torch cannot draw); a native
 checkpoint directory without a checkpoint is refused before a model is
-built (training checkpoint directories themselves: tests/test_torch_port_training.py). `visualize_noise`
-prints the JAX CLI's SNR table digit for digit. Both run here on a tiny
-model or image with `--device cpu`. Torch runs on one intra-op thread here.
+built (training checkpoint directories themselves:
+tests/test_torch_port_training_cli.py). `visualize_noise` prints the JAX
+CLI's SNR table digit for digit. Both run here on a tiny model or image
+with `--device cpu`. Torch runs on one intra-op thread here.
 """
 import numpy as np
 import pytest

@@ -9,6 +9,9 @@ is fed the very noise the JAX sampler draws from its key (`JaxKeyNoise`,
 a closed-form stand-in for the UNet (2e-5), then the small UNet with the JAX
 weights carried across (2e-4), the 9-channel inpainting model and the
 3-channel base model. Torch runs on one intra-op thread here.
+
+The tables are in `test_torch_port_methods_tables.py`: port test files hold at
+most 25 cases (ROADMAP.md).
 """
 import dataclasses
 
@@ -18,149 +21,30 @@ import numpy as np
 import pytest
 import torch
 
-from fidm_tpu.diffusion import DiffusionSchedule as JaxSchedule
-from fidm_tpu.diffusion.gaussian import ModelMeanType as JaxMeanType
-from fidm_tpu.diffusion.gaussian import ModelVarType as JaxVarType
-from fidm_tpu.distill.consistency import consistency_grid
 from fidm_tpu.models import InpaintingUNet as JaxInpaintingUNet
 from fidm_tpu.models import UNet as JaxUNet
 from fidm_tpu.models import UNetConfig as JaxUNetConfig
-from fidm_tpu.sampling import SamplerConfig as JaxSamplerConfig
 from fidm_tpu.sampling import inpaint_sample as jax_inpaint_sample
 from fidm_tpu.sampling import sample as jax_sample
-from fidm_tpu.sampling import sampler as jax_sampler
-from fidm_tpu_torch.diffusion import DiffusionSchedule, ModelMeanType, ModelVarType
-from fidm_tpu_torch.distill.consistency import consistency_grid as port_consistency_grid
+from fidm_tpu_torch.diffusion import DiffusionSchedule
 from fidm_tpu_torch.models import InpaintingUNet, UNet, UNetConfig
 from fidm_tpu_torch.models.weights import state_dict_from_jax
 from fidm_tpu_torch.sampling import SamplerConfig, inpaint_sample, sample
 from fidm_tpu_torch.sampling import sampler as port_sampler
 
-from _torch_port_common import (
-    SMALL,
+from _torch_port_common import (  # noqa: F401
     JaxKeyNoise,
     JaxKeyNoise2,
+    SMALL,
     drawn_jax_variables,
+    one_torch_thread,
     stub_base_model,
     stub_model,
 )
+from _torch_port_methods_common import _configs, _schedules
+
 
 SHAPE = (2, 8, 8, 3)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The test run shares the CPU between its workers, where torch's
-    default pool of one thread per core spins against the others: one
-    intra-op thread (and one BLAS thread) for this module."""
-    from threadpoolctl import threadpool_limits
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(threads)
-
-
-def _configs(**kw):
-    """The same sampler configuration in both packages; mean_type and
-    var_type by enum name."""
-    jkw, pkw = dict(kw), dict(kw)
-    if "mean_type" in kw:
-        jkw["mean_type"] = JaxMeanType[kw["mean_type"]]
-        pkw["mean_type"] = ModelMeanType[kw["mean_type"]]
-    if "var_type" in kw:
-        jkw["var_type"] = JaxVarType[kw["var_type"]]
-        pkw["var_type"] = ModelVarType[kw["var_type"]]
-    return JaxSamplerConfig(**jkw), SamplerConfig(**pkw)
-
-
-def _schedules(name="quadratic", T=1000):
-    return JaxSchedule.create(name, T), DiffusionSchedule.create(name, T, device="cpu")
-
-
-def _assert_tables_equal(ours, ref):
-    assert set(ours) == set(ref)
-    for k in ref:
-        assert ours[k].dtype == ref[k].dtype, k
-        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
-
-
-# ------------------------------------------------------------------ tables
-
-
-@pytest.mark.parametrize("kw", [
-    dict(num_steps=100),
-    dict(num_steps=50, time_spacing="trailing"),
-    dict(num_steps=None),
-    dict(num_steps=None, timesteps=(999, 874, 749, 624, 499, 374, 249, 124, 0)),
-    dict(num_steps=100, strength=0.3),
-], ids=["uniform", "trailing", "full", "explicit", "strength"])
-def test_ddpm_tables_bit_equal(kw):
-    jcfg, pcfg = _configs(method="ddpm", injection_schedule="high", **kw)
-    jsched, psched = _schedules()
-    _assert_tables_equal(port_sampler._ddpm_tables(psched, pcfg),
-                         jax_sampler._ddpm_tables(jsched, jcfg))
-
-
-@pytest.mark.parametrize("k,spacing", [(20, "uniform"), (12, "uniform"), (20, "lambda")])
-def test_dpm3m_tables_bit_equal(k, spacing):
-    jcfg, pcfg = _configs(method="dpm++3m", num_steps=k, time_spacing=spacing)
-    jsched, psched = _schedules()
-    _assert_tables_equal(port_sampler._dpm3m_tables(psched, pcfg),
-                         jax_sampler._dpm3m_tables(jsched, jcfg))
-
-
-@pytest.mark.parametrize("order", [2, 3])
-@pytest.mark.parametrize("corrector", [True, False])
-def test_unipc_tables_bit_equal(order, corrector):
-    jcfg, pcfg = _configs(method="unipc", num_steps=10, unipc_order=order,
-                          unipc_corrector=corrector)
-    jsched, psched = _schedules()
-    _assert_tables_equal(port_sampler._unipc_tables(psched, pcfg),
-                         jax_sampler._unipc_tables(jsched, jcfg))
-
-
-@pytest.mark.parametrize("K,length,n", [(250, 10, 10), (100, 5, 3), (7, 3, 2), (20, 0, 5),
-                                        (20, 4, 1)])
-def test_repaint_level_sequence_bit_equal(K, length, n):
-    np.testing.assert_array_equal(port_sampler.repaint_level_sequence(K, length, n),
-                                  jax_sampler.repaint_level_sequence(K, length, n))
-
-
-@pytest.mark.parametrize("preset", [dict(num_steps=250, jump_length=10, jump_n_sample=10),
-                                    dict(num_steps=100, jump_length=5, jump_n_sample=3)],
-                         ids=["repaint-250", "repaint-100-light"])
-def test_repaint_tables_bit_equal(preset):
-    jcfg, pcfg = _configs(method="repaint", **preset)
-    jsched, psched = _schedules()
-    ours = port_sampler._repaint_tables(psched, pcfg)
-    _assert_tables_equal(ours, jax_sampler._repaint_tables(jsched, jcfg))
-    # repaint-250: 2501 model evaluations among its rows; repaint-100-light 301
-    n_eval = {250: 2501, 100: 301}[preset["num_steps"]]
-    assert ours["is_denoise"].sum() == n_eval
-
-
-def test_repaint_without_jumps_is_ddpm():
-    _, pcfg = _configs(method="repaint", num_steps=20, jump_length=5, jump_n_sample=1)
-    _, psched = _schedules()
-    ours = port_sampler._repaint_tables(psched, pcfg)
-    ddpm = port_sampler._ddpm_tables(psched, pcfg)
-    assert ours["is_denoise"].all()
-    for k, v in ddpm.items():
-        np.testing.assert_array_equal(ours[k], v, err_msg=k)
-
-
-@pytest.mark.parametrize("k", [1, 2, 1000, 1500])
-def test_consistency_seq_bit_equal(k):
-    for T in (50, 1000):
-        jcfg, pcfg = _configs(method="consistency", num_steps=k)
-        ours = port_sampler._consistency_seq(DiffusionSchedule.create("linear", T, device="cpu"),
-                                             pcfg)
-        assert ours == jax_sampler._consistency_seq(JaxSchedule.create("linear", T), jcfg)
-        for steps in (1, 2, k):
-            np.testing.assert_array_equal(port_consistency_grid(T, steps),
-                                          consistency_grid(T, steps))
 
 
 # ------------------------------------------------- trajectories, stub model

@@ -10,6 +10,8 @@ guard canaries around the output buffers.
 """
 import ctypes
 import io
+import multiprocessing
+import os
 import struct
 import zlib
 
@@ -25,11 +27,16 @@ from fidm_tpu_torch.data import dataset as port_dataset
 from fidm_tpu_torch.native import build
 from fidm_tpu_torch.native.imgload import decode_resize, decode_resize_batch
 
+import _torch_port_native_ref as native_ref
+from _torch_port_native_ref import jax_native  # noqa: F401
+
 SIZE = 24
 
 
 @pytest.fixture(scope="module")
-def libs():
+def libs(jax_native):
+    """The port's two libraries; `fidm_tpu`'s, which the cases hold them
+    against, come from `jax_native`, built for this process."""
     masklib, imglib = build.load(), build.load_imgload()
     assert masklib is not None, build.last_error("native")
     assert imglib is not None, build.last_error("imgload")
@@ -137,6 +144,42 @@ def test_dataset_items_bit_equal_to_jax_default(libs, files, mode):
         assert a["mask_path"] == b["mask_path"]
         for key in ("image", "masked_image", "mask"):
             np.testing.assert_array_equal(a[key], b[key], err_msg=f"{i} {key}")
+
+
+def test_private_jax_builds_in_six_processes_at_once(libs, files, tmp_path):
+    """Six processes that start together each build `fidm_tpu`'s two
+    libraries in a directory of their own (`jax_native_libs`), load both
+    from there and decode one seeded PNG equal to the port's decode: the
+    parity cases never load the shared `fidm_tpu/native/_artifacts/` build,
+    which test workers starting together race on."""
+    n = 6
+    ctx = multiprocessing.get_context("spawn")
+    barrier, results = ctx.Barrier(n), ctx.Queue()
+    path = files / "images" / "img_0.png"
+    dirs = [tmp_path / f"proc{i}" for i in range(n)]
+    procs = [ctx.Process(target=native_ref.decode_in_private_build,
+                         args=(barrier, results, i, str(dirs[i]), str(path), SIZE))
+             for i in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        got = {}
+        for _ in range(n):
+            i, *rest = results.get(timeout=300)
+            got[i] = rest
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    ours = decode_resize(path, SIZE, "RGB")
+    assert ours is not None
+    for i in range(n):
+        masklib, imglib, out = got[i]
+        assert masklib is not None, (i, out)
+        assert os.path.dirname(masklib) == os.path.dirname(imglib) == str(dirs[i])
+        np.testing.assert_array_equal(out, ours, err_msg=str(i))
+    assert [p.exitcode for p in procs] == [0] * n
 
 
 def _png_with_header(width, height):

@@ -7,6 +7,12 @@ on the card (`test_torch_port_cuda.py`), draws Philox bits that the TPU's
 generator does not give, so it is held to the properties the TPU kernel has:
 the same scales, one of the two neighbouring integers, determinism per seed
 and no bias.
+
+The CUDA kernel's launch geometry and its block decomposition, checked on the
+CPU for every weight shape the full-width model dispatches and for the
+geometry's edge cases, are in `test_torch_port_quant_geometry.py`,
+`test_torch_port_quant_edges.py` and `test_torch_port_quant_decomposition.py`:
+port test files hold at most 25 cases (ROADMAP.md).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,34 +34,21 @@ from fidm_tpu_torch.quant import (
     quantized_size_bytes,
 )
 
-from _torch_port_common import JCFG, PCFG, perturbed_jax_variables
-
-
-def _weights(shape, seed, scale=0.05):
-    return (scale * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
-
-
-def _leaves(tree, prefix=()):
-    """(path, leaf) in the tree's order; a quantized leaf is one entry."""
-    for k, v in tree.items():
-        p = prefix + (k,)
-        if isinstance(v, dict) and set(v) != {"q", "scale"}:
-            yield from _leaves(v, p)
-        else:
-            yield p, v
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tensors here are small, and the test run shares the CPU between
-    its workers, where torch's default pool of one thread per core spins
-    against the other workers (alone on an 8-core CPU this module took 176 s
-    of CPU in 63 s, and 80 s in 67 s on one thread): one intra-op thread for
-    this module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_port_common import (  # noqa: F401
+    JCFG,
+    PCFG,
+    one_torch_thread,
+    perturbed_jax_variables,
+)
+from _torch_port_quant_common import (
+    _weights,
+    _leaves,
+    H100_SMEM_PER_BLOCK,
+    KERNEL_STATIC_SMEM,
+    _ffhq256_dispatched_shapes,
+    FFHQ256_SHAPES,
+    _geometry,
+)
 
 
 @pytest.fixture(scope="module")
@@ -239,70 +232,9 @@ def test_seeds_follow_tree_order():
     assert torch.equal(out["a"]["bias"], tree["a"]["bias"])
 
 
-# --- the CUDA kernel's decomposition (csrc/quantize.cu), on the CPU ---------
-
-# cudaOccupancyMaxActiveClusters for the kernel on an H100 SXM (132 SMs), by
-# cluster size 1..8, as `chip_smoke.py` prints them: the clusters of each
-# size that the card's GPCs hold at once.
-H100_MAX_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
-H100_SMEM_PER_BLOCK = 232448
-KERNEL_STATIC_SMEM = 2304
-
-
-def _ffhq256_dispatched_shapes():
-    """The [rows, out] views of the FFHQ-256 UNet's weights that go through
-    the kernel: 114 of the 116 quantized, in tree order."""
-    from fidm_tpu_torch.models import InpaintingUNet, ffhq256_config
-
-    cfg = ffhq256_config()
-    with torch.device("meta"):
-        model = InpaintingUNet(cfg)
-    tree = jax_tree_from_state_dict(model.state_dict(), cfg)
-    shapes = [(v.numel() // v.shape[-1], v.shape[-1]) for p, v in _leaves(tree)
-              if p[-1] == "kernel" and v.ndim >= 2 and v.numel() >= 4096]
-    assert len(shapes) == 116
-    return [s for s in shapes if s[0] % 8 == 0 and s[1] % 128 == 0]
-
-
-FFHQ256_SHAPES = sorted(set(_ffhq256_dispatched_shapes()))
-# the geometry's edges: one row, one step of rows, rows not a multiple of a
-# step, one strip, a ragged last strip, and a tall matrix whose CTAs cannot
-# hold all their rows
-EDGE_SHAPES = [(8, 128), (1, 128), (1, 4), (1000, 128), (100, 200), (257, 36), (32768, 256)]
-
-
-def _geometry(n, c):
-    return port_ops.quantize_geometry(n, c, H100_SMEM_PER_BLOCK, KERNEL_STATIC_SMEM,
-                                      H100_MAX_CLUSTERS)
-
-
 def test_the_full_width_model_dispatches_114_weights():
     assert len(_ffhq256_dispatched_shapes()) == 114
     assert len(FFHQ256_SHAPES) == 25
-
-
-@pytest.mark.parametrize("n,c", FFHQ256_SHAPES + EDGE_SHAPES)
-def test_geometry_covers_every_element_once_within_the_card(n, c):
-    g = _geometry(n, c)
-    assert g.strip in port_ops.STRIPS
-    assert (g.strips - 1) * g.strip < c <= g.strips * g.strip
-    # the CTAs of a cluster split the strip's rows without overlap or gap
-    starts = [k * g.rows_per_cta for k in range(g.cluster)]
-    ends = [min(n, s + g.rows_per_cta) for s in starts]
-    assert starts[0] == 0 and ends[-1] == n
-    assert all(e2 == s1 for e2, s1 in zip(ends, starts[1:]) if s1 < n)
-    assert sum(max(0, e - s) for s, e in zip(starts, ends)) == n
-    # each CTA's threads: column group t % groups, rows t // groups + step * k
-    groups = g.strip // 4
-    rows_seen = sorted({t // groups + g.row_step * k for t in range(g.row_step * groups)
-                        for k in range(-(-g.rows_per_cta // g.row_step))})
-    assert rows_seen[:g.rows_per_cta] == list(range(g.rows_per_cta))
-    # shared memory, cluster size, one wave
-    assert 1 <= g.hold_rows <= g.rows_per_cta
-    assert g.smem_bytes == g.hold_rows * g.strip * 4
-    assert g.smem_bytes <= min(port_ops.TILE_BYTES, H100_SMEM_PER_BLOCK - KERNEL_STATIC_SMEM)
-    assert 1 <= g.cluster <= port_ops.MAX_CLUSTER == 8
-    assert g.strips <= H100_MAX_CLUSTERS[g.cluster - 1]
 
 
 def test_geometry_streams_only_what_no_cluster_can_hold():
@@ -316,55 +248,3 @@ def test_geometry_streams_only_what_no_cluster_can_hold():
     roomy = port_ops.quantize_geometry(24576, 256, H100_SMEM_PER_BLOCK, KERNEL_STATIC_SMEM,
                                        [1024] * port_ops.MAX_CLUSTER)
     assert roomy.hold_rows == roomy.rows_per_cta
-
-
-def _emulate_kernel(x: torch.Tensor, seed: int, g) -> tuple:
-    """The kernel's arithmetic, block by block: per-CTA column maxima, the
-    cluster's maximum of them, then each CTA's rows (held, then streamed)
-    rounded with the Philox draws of their flat indices, clipped before the
-    floor as the kernel does."""
-    n, c = x.shape
-    values = torch.empty((n, c), dtype=torch.int8)
-    scales = torch.empty((1, c), dtype=torch.float32)
-    for s in range(g.strips):
-        c0, c1 = s * g.strip, min(c, (s + 1) * g.strip)
-        blocks = [(k * g.rows_per_cta, min(n, (k + 1) * g.rows_per_cta))
-                  for k in range(g.cluster)]
-        partial = [x[r0:r1, c0:c1].abs().amax(dim=0) if r1 > r0
-                   else torch.zeros(c1 - c0) for r0, r1 in blocks]
-        absmax = torch.stack(partial).amax(dim=0).clamp_min(1e-8)
-        scale = absmax / torch.full_like(absmax, 127.0)
-        scales[0, c0:c1] = scale
-        for r0, r1 in blocks:
-            parts = ((r0, min(r1, r0 + g.hold_rows)), (r0 + g.hold_rows, r1))
-            for a, b in parts:
-                if b <= a:
-                    continue
-                rows = torch.arange(a, b, dtype=torch.int64)[:, None]
-                cols = torch.arange(c0, c1, 4, dtype=torch.int64)[None, :]
-                ctr = (rows * c + cols) // 4  # one Philox call per float4
-                zero = torch.zeros_like(ctr)
-                words = port_ops.philox4x32_10((ctr & 0xFFFFFFFF, ctr >> 32, zero, zero),
-                                               (seed, 0))
-                bits = torch.stack(words, dim=-1).reshape(b - a, c1 - c0)
-                u = (bits >> 8).to(torch.float32) * 2.0 ** -24
-                v = (x[a:b, c0:c1] / scale + u).clamp(-127, 127)
-                values[a:b, c0:c1] = torch.floor(v).to(torch.int8)
-    return values, scales
-
-
-@pytest.mark.parametrize("n,c", FFHQ256_SHAPES + EDGE_SHAPES[:-1] + [(3000, 256)])
-def test_kernel_decomposition_is_bit_equal_to_plain(n, c):
-    """Seeds 1 and 2^32 - 1 (the key's top bit set)."""
-    x = torch.from_numpy(_weights((n, c), n + c))
-    x[0, 0] = 0.0
-    g = _geometry(n, c)
-    if (n, c) == (3000, 256):  # CTAs that stream part of their rows
-        g = port_ops._make_geometry(n, c, 32, 2, 1000 * 32 * 4)
-        assert g.hold_rows < g.rows_per_cta
-    for seed in (1, 2 ** 32 - 1):
-        values, scales = _emulate_kernel(x, seed, g)
-        ref_values, ref_scales = port_ops._quantize_stochastic_reference(x, seed)
-        assert torch.equal(scales, ref_scales)
-        assert torch.equal(values, ref_values)
-

@@ -6,6 +6,10 @@ Trajectories: both samplers run one model function on the same numpy inputs,
 and the port is fed the very noise the JAX sampler draws from its key
 (`_key_split`, `_key_normal`, `_key_fold`, `_gt_noise`), so the two runs
 differ only by float32 rounding.
+
+The host tables are in `test_torch_port_sampler_schedules.py`, the Gaussian
+conversions in `test_torch_port_sampler_gaussian.py`: port test files hold at
+most 25 cases (ROADMAP.md).
 """
 import dataclasses
 
@@ -17,143 +21,19 @@ import torch
 
 from fidm_tpu.diffusion import DiffusionSchedule as JaxSchedule
 from fidm_tpu.diffusion import gaussian as jax_gaussian
-from fidm_tpu.diffusion import schedules as jax_schedules
 from fidm_tpu.sampling import SamplerConfig as JaxSamplerConfig
 from fidm_tpu.sampling import inpaint_sample as jax_inpaint_sample
 from fidm_tpu.sampling import sampler as jax_sampler
 from fidm_tpu_torch.diffusion import DiffusionSchedule
 from fidm_tpu_torch.diffusion import gaussian as port_gaussian
-from fidm_tpu_torch.diffusion import schedules as port_schedules
 from fidm_tpu_torch.sampling import SamplerConfig, inpaint_sample
 from fidm_tpu_torch.sampling import sampler as port_sampler
 
-from _torch_port_common import JaxKeyNoise, to_torch
+from _torch_port_common import JaxKeyNoise, one_torch_thread, to_torch  # noqa: F401
 from _torch_port_common import stub_model as _model
 
+
 SHAPE = (2, 8, 8, 3)
-
-
-@pytest.mark.parametrize("name", ["linear", "cosine", "quadratic", "sqrt_linear"])
-def test_beta_schedules_bit_equal(name):
-    np.testing.assert_array_equal(port_schedules.get_named_beta_schedule(name, 1000),
-                                  jax_schedules.get_named_beta_schedule(name, 1000))
-
-
-@pytest.mark.parametrize("spacing", ["uniform", "trailing", "lambda", "karras"])
-def test_timestep_grids_bit_equal(spacing):
-    acp = np.cumprod(1.0 - jax_schedules.get_named_beta_schedule("quadratic", 1000))
-    for k in (10, 25, 100):
-        np.testing.assert_array_equal(
-            port_schedules.timestep_sequence(1000, k, spacing, alphas_cumprod=acp),
-            jax_schedules.timestep_sequence(1000, k, spacing, alphas_cumprod=acp))
-
-
-def test_ddim100_grid_is_101_steps():
-    seq = port_schedules.ddim_timestep_sequence(1000, 100)
-    assert len(seq) == 101
-    assert seq[0] == 999 and seq[1] == 990 and seq[-2] == 10 and seq[-1] == 0
-
-
-def test_schedule_device_tables_equal():
-    """float32 copies of the same float64 numbers on both sides."""
-    ours = DiffusionSchedule.create("quadratic", 1000, device="cpu")
-    ref = JaxSchedule.create("quadratic", 1000)
-    np.testing.assert_array_equal(ours.betas_host, ref.betas_host)
-    for f in ("betas", "alphas_cumprod", "alphas_cumprod_prev", "alphas_cumprod_next",
-              "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
-              "log_one_minus_alphas_cumprod", "sqrt_recip_alphas_cumprod",
-              "sqrt_recipm1_alphas_cumprod", "posterior_variance",
-              "posterior_log_variance_clipped", "posterior_mean_coef1",
-              "posterior_mean_coef2", "log_betas", "fixed_large_variance",
-              "fixed_large_log_variance"):
-        np.testing.assert_array_equal(getattr(ours, f).numpy(), np.asarray(getattr(ref, f)),
-                                      err_msg=f)
-
-
-@pytest.mark.parametrize("schedule", ["all", "high"])
-def test_ddim100_tables_bit_equal(schedule):
-    """The flagship preset (DDIM-100, eta 0.9): every float64 table."""
-    ours = port_sampler._ddim_tables(
-        DiffusionSchedule.create("quadratic", 1000, device="cpu"),
-        SamplerConfig(num_steps=100, eta=0.9, injection_schedule=schedule))
-    ref = jax_sampler._ddim_tables(
-        JaxSchedule.create("quadratic", 1000),
-        JaxSamplerConfig(num_steps=100, eta=0.9, injection_schedule=schedule))
-    assert set(ours) == set(ref)
-    assert len(ours["t"]) == 101
-    for k in ref:
-        assert ours[k].dtype == ref[k].dtype, k
-        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
-
-
-@pytest.mark.parametrize("name", ["q_sample", "predict_xstart_from_eps",
-                                  "predict_xstart_from_xprev", "predict_xstart_from_v",
-                                  "predict_eps_from_xstart", "velocity_from_eps_xstart"])
-def test_gaussian_conversions_match_jax(name):
-    rng = np.random.default_rng(4)
-    x, y = (rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2))
-    t = np.array([3, 871], np.int32)
-    # velocity_from_eps_xstart takes (t, eps, x_start); the others (x, t, y)
-    args = (t, x, y) if name == "velocity_from_eps_xstart" else (x, t, y)
-    ref = getattr(jax_gaussian, name)(JaxSchedule.create("quadratic", 1000), *args)
-    ours = getattr(port_gaussian, name)(DiffusionSchedule.create("quadratic", 1000, device="cpu"),
-                                        *(torch.from_numpy(a) for a in args))
-    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("name", ["q_mean_variance", "q_posterior_mean_variance"])
-def test_q_distributions_match_jax(name):
-    """mean, variance and log-variance of q(x_t | x_0) and of the posterior."""
-    rng = np.random.default_rng(7)
-    x0, xt = (rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2))
-    t = np.array([0, 642], np.int32)
-    args = (x0, t) if name == "q_mean_variance" else (x0, xt, t)
-    ref = getattr(jax_gaussian, name)(JaxSchedule.create("linear", 1000), *args)
-    ours = getattr(port_gaussian, name)(DiffusionSchedule.create("linear", 1000, device="cpu"),
-                                        *(torch.from_numpy(a) for a in args))
-    assert len(ours) == len(ref) == 3
-    for o, r in zip(ours, ref):
-        assert tuple(o.shape) == np.shape(r)
-        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("var_type", ["LEARNED", "LEARNED_RANGE", "FIXED_SMALL", "FIXED_LARGE"])
-@pytest.mark.parametrize("mean_type", ["EPSILON", "START_X", "VELOCITY", "PREVIOUS_X"])
-def test_p_mean_variance_and_guidance_match_jax(mean_type, var_type):
-    """p(x_{t-1} | x_t) from one model output under every mean and variance
-    type, then both classifier-guidance shifts of it. The learned types get
-    a 6-channel output (LEARNED_RANGE's variance part in [-1, 1]); the
-    LEARNED and FIXED_LARGE cases leave x0 unclipped."""
-    rng = np.random.default_rng(8)
-    learned = var_type.startswith("LEARNED")
-    x, grad = (rng.standard_normal(SHAPE).astype(np.float32) for _ in range(2))
-    out = rng.standard_normal(SHAPE).astype(np.float32)
-    if learned:
-        var = (rng.uniform(-1, 1, SHAPE) if var_type == "LEARNED_RANGE"
-               else rng.uniform(-9, -2, SHAPE)).astype(np.float32)
-        out = np.concatenate([out, var], axis=-1)
-    t = np.array([5, 730], np.int32)
-    clip = var_type not in ("LEARNED", "FIXED_LARGE")
-    jsched = JaxSchedule.create("quadratic", 1000)
-    sched = DiffusionSchedule.create("quadratic", 1000, device="cpu")
-    ref = jax_gaussian.p_mean_variance(
-        jsched, out, x, t, mean_type=jax_gaussian.ModelMeanType[mean_type],
-        var_type=jax_gaussian.ModelVarType[var_type], clip_denoised=clip)
-    tx, tt, tg = (torch.from_numpy(a) for a in (x, t, grad))
-    ours = port_gaussian.p_mean_variance(
-        sched, torch.from_numpy(out), tx, tt,
-        mean_type=port_gaussian.ModelMeanType[mean_type],
-        var_type=port_gaussian.ModelVarType[var_type], clip_denoised=clip)
-    assert isinstance(ours, port_gaussian.PMeanVariance)
-    guided = {"condition_mean": (port_gaussian.condition_mean(ours, tg),
-                                 jax_gaussian.condition_mean(ref, grad)),
-              "condition_score": (port_gaussian.condition_score(sched, ours, tx, tt, tg),
-                                  jax_gaussian.condition_score(jsched, ref, x, t, grad))}
-    for label, (o, r) in [("p_mean_variance", (ours, ref)), *guided.items()]:
-        for f in port_gaussian.PMeanVariance._fields:
-            a, b = getattr(o, f).numpy(), np.asarray(getattr(r, f))
-            assert a.shape == b.shape, (label, f)
-            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6, err_msg=f"{label}.{f}")
 
 
 @pytest.mark.parametrize("schedule", ["all", "high", "low"])
